@@ -1,0 +1,406 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the CUDA kernels from ``src/repro_torch/csrc`` (into
+``build/kernels/``), then runs three phases; any failure exits non-zero
+before the result line is printed.
+
+1. Kernels against their plain torch versions at the main path's shapes
+   (VGG-16 PixelLink, 512x512, batch 2): the kernel on the card, the plain
+   version on CPU copies of the same inputs, at the CPU tests' tolerances
+   (K1 atol/rtol 2e-3, K2 1e-4, K3 labels exact).  Times are CUDA-event
+   medians of 20 calls after 3 warm-up calls, for the kernel, the plain
+   version on the card and, where one PyTorch call computes the same
+   function, that call (``library_ms``, a yardstick the port never calls).
+2. The published configuration (``configs/pixellink_std.VGG16``: width
+   1.0, 512x512, merge (128, 64, 32), optimized, BFP, FP16 storage) with
+   seeded random weights through ``EngineFactory``'s single-device engine
+   on a batch of 2.  Launch counters are zeroed just before that run and
+   read just after: K1 must run 17 times, K2 7 times and K3 once.  The
+   maps of image 0 are held against the port's CPU run of the same
+   weights and image (probabilities within 2e-2, mean within 2e-3, as in
+   tests/test_torch_engine.py), and the CC labels from the card (K3)
+   must equal the CPU labelling of the card's maps bit for bit.
+3. Serving: ``STDService(width=1.0, precision="bfp", buckets=(128, 256,
+   512), merge_ch=(128, 64, 32), device="cuda")`` answers 6 requests of
+   ``RequestStream(6, seed=0, hw_range=((256, 512), (256, 512)))`` one by
+   one; the boxes per request and the median latency are printed.
+
+The last lines are a ``{"kernels": [...]}`` JSON line, the card's name
+and power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --profile`` also runs torch.profiler over one
+engine step of phase 2 and prints the device time by kernel and the
+device's busy share of the step.
+"""
+import dataclasses
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+F32_PEAK = 67e12        # H100 SXM f32 FLOP/s outside the tensor cores
+HBM_BYTES_S = 3.35e12   # H100 SXM device-memory rate
+BATCH = 2
+HW = (512, 512)
+
+
+def fail(msg: str) -> None:
+    print(f"[chip_smoke] FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def log(msg: str) -> None:
+    print(f"[chip_smoke] {msg}", flush=True)
+
+
+def cuda_ms(torch, fn, warmup: int = 3, iters: int = 20) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    events = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def bound(nbytes: float, flops: float):
+    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, flops / F32_PEAK * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+# ---------------------------------------------------------------------------
+# phase 1: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def phase_kernels(torch, np):
+    import torch.nn.functional as F
+
+    from repro_torch.core import winograd as wg
+    from repro_torch.data.images import SyntheticSTDData
+    from repro_torch.kernels.bfp_matmul import (
+        bfp_matmul_quantized, bfp_matmul_quantized_plain, quantize_operands)
+    from repro_torch.kernels.bfp_matmul.ops import _dequantize
+    from repro_torch.kernels.cc_label import (
+        local_spread_converge, local_spread_converge_plain)
+    from repro_torch.kernels.winograd_conv import (
+        winograd_tiles, winograd_tiles_plain)
+    from repro_torch.models.fcn import postprocess as pp
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(0)
+    rows = {}
+
+    # K1 at conv1_2 (512x512, 64 -> 64) and conv5_1 (32x32, 512 -> 512)
+    shapes = []
+    for name, hw, cin, cout in (("conv1_2", 512, 64, 64),
+                                ("conv5_1", 32, 512, 512)):
+        x = torch.randn((BATCH, hw, hw, cin), generator=gen).to(dev)
+        w = (torch.randn((3, 3, cin, cout), generator=gen)
+             * (2.0 / (9 * cin)) ** 0.5).to(dev)
+        b = torch.randn((cout,), generator=gen).to(dev)
+        v, (oh, ow, th, tw) = wg.input_tiles(x)
+        u = wg.transform_weights(w).reshape(36, cin, cout).contiguous()
+        geo = dict(relu=True, n=BATCH, th=th, tw=tw, out_h=oh, out_w=ow)
+        got = winograd_tiles(v, u, b, **geo)
+        torch.cuda.synchronize()
+        want = winograd_tiles_plain(v.cpu(), u.cpu(), b.cpu(), **geo)
+        err = float((got.cpu() - want).abs().max())
+        if not torch.allclose(got.cpu(), want, atol=2e-3, rtol=2e-3):
+            fail(f"K1 {name}: kernel differs from plain (max abs {err})")
+        x_nchw = x.permute(0, 3, 1, 2).contiguous()
+        w_oihw = w.permute(3, 2, 0, 1).contiguous()
+        ms = cuda_ms(torch, lambda: winograd_tiles(v, u, b, **geo))
+        plain = cuda_ms(torch, lambda: winograd_tiles_plain(v, u, b, **geo))
+        lib = cuda_ms(torch, lambda: F.conv2d(x_nchw, w_oihw, b, padding=1))
+        flops = 2.0 * v.shape[0] * 36 * cin * cout
+        bms, by = bound(nbytes(v, u, b, got), flops)
+        shapes.append(dict(shape=f"{name} x{tuple(x.shape)} w{tuple(w.shape)}",
+                           max_abs_err=err, ms=ms, plain_ms=plain,
+                           library_ms=lib, bound_ms=bms, bound_by=by))
+        log(f"K1 {name}: P={v.shape[0]} max_abs_err={err:.3g} "
+            f"kernel {ms:.4f} ms plain {plain:.4f} ms conv2d {lib:.4f} ms "
+            f"bound {bms:.4f} ms ({by})")
+        del x, v, got, want
+    rows["winograd_tiles"] = shapes
+
+    # K2 at merge1_c1 (concat K = 128 + 512) and head_logits
+    shapes = []
+    for name, M, K, N in (("merge1_c1", BATCH * 32 * 32, 640, 128),
+                          ("head_logits", BATCH * 128 * 128, 32, 9)):
+        a = torch.relu(torch.randn((M, K), generator=gen)).to(dev)
+        bm = (torch.randn((K, N), generator=gen) * (2.0 / K) ** 0.5).to(dev)
+        ops = quantize_operands(a, bm)
+        got = bfp_matmul_quantized(*ops)
+        torch.cuda.synchronize()
+        want = bfp_matmul_quantized_plain(*(t.cpu() for t in ops),
+                                          block_size=32, mantissa_bits=10)
+        err = float((got.cpu() - want).abs().max())
+        if not torch.allclose(got.cpu(), want, atol=1e-4, rtol=1e-4):
+            fail(f"K2 {name}: kernel differs from plain (max abs {err})")
+        a_deq = _dequantize(ops[0], ops[1], 32, 10)
+        b_deq = _dequantize(ops[2].t(), ops[3], 32, 10).t().contiguous()
+        ms = cuda_ms(torch, lambda: bfp_matmul_quantized(*ops))
+        plain = cuda_ms(torch, lambda: bfp_matmul_quantized_plain(
+            *ops, block_size=32, mantissa_bits=10))
+        lib = cuda_ms(torch, lambda: torch.matmul(a_deq, b_deq))
+        bms, by = bound(nbytes(*ops, got), 2.0 * M * K * N)
+        shapes.append(dict(shape=f"{name} M={M} K={K} N={N}",
+                           max_abs_err=err, ms=ms, plain_ms=plain,
+                           library_ms=lib, bound_ms=bms, bound_by=by))
+        log(f"K2 {name}: M={M} K={K} N={N} max_abs_err={err:.3g} "
+            f"kernel {ms:.4f} ms plain {plain:.4f} ms matmul {lib:.4f} ms "
+            f"bound {bms:.4f} ms ({by})")
+    rows["bfp_matmul_quantized"] = shapes
+
+    # K3 at (2, 128, 128): ground-truth maps of synthetic 512x512 text
+    data = SyntheticSTDData(HW, seed=0).sample(0, BATCH)
+    score = torch.from_numpy(data["score"])
+    links = torch.from_numpy(data["links"])
+    pos = score > 0.5
+    lnk = pp.link_symmetrize(links) > 0.5
+    args = [t.to(torch.int32).contiguous()
+            for t in (pp.cc_init_labels(pos), pos, lnk)]
+    dargs = [t.to(dev) for t in args]
+    got, rounds = local_spread_converge(*dargs)
+    torch.cuda.synchronize()
+    want, want_rounds = local_spread_converge_plain(*args, th=32, tw=32)
+    if not (torch.equal(got.cpu(), want)
+            and torch.equal(rounds.cpu(), want_rounds)):
+        fail("K3: kernel labels or rounds differ from the plain version")
+    ms = cuda_ms(torch, lambda: local_spread_converge(*dargs))
+    plain = cuda_ms(torch, lambda: local_spread_converge_plain(
+        *dargs, th=32, tw=32), warmup=1, iters=10)
+    # each round: 8 compare-and-max per pixel of the tile
+    ops3 = float(rounds.sum()) * 32 * 32 * 8 * 2
+    bms, by = bound(nbytes(*dargs, got, rounds), ops3)
+    rows["local_spread_converge"] = [dict(
+        shape=f"labels{tuple(got.shape)} rounds={int(rounds.sum())}",
+        max_abs_err=0.0, ms=ms, plain_ms=plain, library_ms=None,
+        bound_ms=bms, bound_by=by)]
+    log(f"K3 local spread {tuple(got.shape)}: exact, tile rounds "
+        f"{int(rounds.min())}..{int(rounds.max())}, kernel {ms:.4f} ms "
+        f"plain {plain:.4f} ms bound {bms:.5f} ms ({by})")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 2: the published configuration through the engine factory
+# ---------------------------------------------------------------------------
+
+def profile_step(torch, fn, params, x, vq) -> None:
+    """torch.profiler over one engine step: device time by kernel and the
+    device's busy share of the step's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn(params, x, vq)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    # device-side events only (kernels, memcpy, memset): the CPU ops that
+    # launched them report the same time again
+    device = torch.autograd.DeviceType.CUDA
+    events = sorted((e for e in prof.key_averages()
+                     if getattr(e, "device_type", None) == device),
+                    key=dev_us, reverse=True)
+    busy = sum(dev_us(e) for e in events)
+    log(f"profile: step wall {wall_us / 1e3:.2f} ms, device busy "
+        f"{busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f}%), "
+        f"{sum(e.count for e in events)} device kernels")
+    for e in events[:20]:
+        log(f"profile: {dev_us(e) / 1e3:9.3f} ms {e.count:5d}x "
+            f"{e.key[:90]}")
+
+
+def phase_model(torch, np, profile=False):
+    from repro_torch import kernels
+    from repro_torch.configs.pixellink_std import VGG16
+    from repro_torch.data.images import SyntheticSTDData
+    from repro_torch.models.fcn import DetectionModel, build_head
+    from repro_torch.models.fcn import postprocess as pp
+    from repro_torch.runtime.executor import EngineFactory, SingleDevice
+
+    def make_model(hw, precision, model, device="cuda"):
+        return DetectionModel(dataclasses.replace(VGG16, image_size=hw),
+                              build_head(model), device)
+
+    factory = EngineFactory(make_model, device="cuda")
+    fn = factory.plan_fn(HW, BATCH, SingleDevice(), "bfp")
+    params = factory.params(HW, "bfp")
+    images = SyntheticSTDData(HW, seed=0).sample(0, BATCH)["images"]
+    x = torch.from_numpy(images).cuda()
+    vq = torch.full((BATCH, 2), HW[0] // 4, dtype=torch.int32, device="cuda")
+    torch.cuda.synchronize()
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    labels, converged = fn(params, x, vq)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    want = {"winograd_tiles": 17, "bfp_matmul_quantized": 7,
+            "local_spread_converge": 1}
+    log(f"main path launches {launches} (first call {first_s:.3f} s)")
+    if launches != want:
+        fail(f"launch counts {launches} != {want} for one batch")
+    if not bool(converged.all()):
+        fail("CC labelling did not converge")
+
+    steps = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        fn(params, x, vq)
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t0)
+    log(f"batch of {BATCH} at {HW}: median step "
+        f"{statistics.median(steps) * 1e3:.2f} ms over 3")
+    if profile:
+        profile_step(torch, fn, params, x, vq)
+
+    model = factory.model(HW, "bfp")
+    maps = model.apply(params, x)
+    labels2, _ = factory.label_tail(maps["score"], maps["links"], vq)
+    cpu_labels = pp.cc_label_batched(maps["score"].cpu(), maps["links"].cpu())
+    if not torch.equal(labels2.cpu(), cpu_labels):
+        fail("card CC labels differ from the CPU labelling of the card maps")
+    if not torch.equal(labels2, labels):
+        fail("two runs of the engine on the same batch gave other labels")
+    for k in ("score", "links", "logits"):
+        if not bool(torch.isfinite(maps[k]).all()):
+            fail(f"non-finite values in {k}")
+
+    cpu_model = make_model(HW, "bfp", "pixellink", device="cpu")
+    cpu_params = {n: {k: v.cpu() for k, v in leaves.items()}
+                  for n, leaves in params.items()}
+    t0 = time.perf_counter()
+    cpu_maps = cpu_model.apply(cpu_params, x[:1].cpu())
+    log(f"CPU run of image 0: {time.perf_counter() - t0:.1f} s")
+    deltas = {}
+    for k in ("score", "links", "logits"):
+        d = (maps[k][:1].cpu() - cpu_maps[k]).abs()
+        deltas[k] = (float(d.max()), float(d.mean()))
+    log(f"card vs CPU map deltas (max, mean): {deltas}")
+    for k in ("score", "links"):
+        if deltas[k][0] > 2e-2 or deltas[k][1] > 2e-3:
+            fail(f"{k} maps differ from the CPU run beyond 2e-2 / 2e-3")
+    n_boxes = [len(pp.boxes_from_labels(labels[i].cpu().numpy()))
+               for i in range(BATCH)]
+    log(f"components per image: {n_boxes}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 3: serving
+# ---------------------------------------------------------------------------
+
+def phase_serving(torch, np):
+    from repro_torch import kernels
+    from repro_torch.data.images import RequestStream
+    from repro_torch.launch.serve import STDService
+
+    svc = STDService(width=1.0, precision="bfp", buckets=(128, 256, 512),
+                     merge_ch=(128, 64, 32), device="cuda")
+    stream = list(RequestStream(6, seed=0,
+                                hw_range=((256, 512), (256, 512))))
+    kernels.reset_launch_counts()
+    for i, req in enumerate(stream):
+        boxes = svc(req["image"])
+        h, w = req["hw"]
+        for b in boxes:
+            x0, y0, x1, y1 = b["box"]
+            if not (0 <= x0 <= x1 < w // 4 and 0 <= y0 <= y1 < h // 4):
+                fail(f"request {i}: box {b['box']} outside {req['hw']}")
+        log(f"request {i} {req['hw']}: {len(boxes)} boxes, "
+            f"{svc.stats['latency_s'][-1] * 1e3:.2f} ms")
+    launches = kernels.launch_counts()
+    if min(launches.values()) < len(stream):
+        fail(f"serving did not run every kernel per request: {launches}")
+    lat = svc.stats["latency_s"]
+    log(f"serving: 6 requests, median latency "
+        f"{statistics.median(lat) * 1e3:.2f} ms, launches {launches}")
+
+
+def main() -> None:
+    if not (SRC / "repro_torch" / "csrc").is_dir():
+        fail(f"{SRC / 'repro_torch'} not found: run from a checkout")
+    sys.path.insert(0, str(SRC))
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False")
+    from repro_torch.core import resolve_device
+    from repro_torch.kernels import build
+
+    resolve_device("cuda")          # also switches TF32 off
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"on {torch.cuda.get_device_name(0)}")
+    t0 = time.perf_counter()
+    build.library()
+    log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
+    for line in build.build_log().splitlines():
+        if "registers" in line or "spill" in line:
+            log("ptxas: " + line.strip())
+
+    rows = phase_kernels(torch, np)
+    launches = phase_model(torch, np, profile="--profile" in sys.argv[1:])
+    phase_serving(torch, np)
+
+    meta = {
+        "winograd_tiles": ("src/repro_torch/csrc/winograd_conv.cu",
+                           "src/repro/kernels/winograd_conv/kernel.py:41"),
+        "bfp_matmul_quantized": ("src/repro_torch/csrc/bfp_matmul.cu",
+                                 "src/repro/kernels/bfp_matmul/kernel.py:33"),
+        "local_spread_converge": ("src/repro_torch/csrc/cc_label.cu",
+                                  "src/repro/kernels/cc_label/kernel.py:31"),
+    }
+    out = []
+    for name, shapes in rows.items():
+        first = shapes[0]
+        out.append({
+            "name": name, "route": "cuda", "source": meta[name][0],
+            "replaces": meta[name][1], "launches": launches[name],
+            "max_abs_err": max(s["max_abs_err"] for s in shapes),
+            "ms": first["ms"], "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+            "library_ms": first["library_ms"], "shapes": shapes,
+        })
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    if smi.returncode != 0 or not smi.stdout.strip():
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    print(json.dumps({"kernels": out}), flush=True)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

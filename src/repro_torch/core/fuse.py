@@ -1,0 +1,148 @@
+"""Complexity-reduction fusions (paper contribution C6) and the plain
+convolution/pooling helpers, in torch ops over NHWC/HWIO tensors.
+
+1. BatchNorm folding into the preceding convolution:
+       conv(x, W * s) + (b - mean) * s + beta,   s = gamma / sqrt(var + eps)
+2. Upsample padding minimization: a 2x zero-insertion upsample followed by
+   a 3x3 convolution is phase-decomposed over the four output phases, so
+   only the non-zero taps are computed (9 taps per 4 outputs instead of
+   36, the paper's 75% reduction).
+3. Conv epilogue fusion: bias + ReLU ride the conv launch unless the word
+   uses the residual register, which reads the pre-activation value.
+
+Padding follows XLA's ``"SAME"`` rule for any window and stride: the total
+padding ``max((ceil(n / s) - 1) * s + k - n, 0)`` is split with the
+smaller half first, which is asymmetric for even windows and strides
+above 1.  ``F.conv2d`` and the pooling ops pad symmetrically, so the
+padding is applied explicitly with ``F.pad`` before them.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+
+def fold_batchnorm(w, b, gamma, beta, mean, var, eps: float = 1e-5):
+    """Fold BN(conv(x, w) + b) into one conv's (w', b'); w is HWIO."""
+    s = gamma * torch.rsqrt(var + eps)
+    w_f = w * s[None, None, None, :]
+    b0 = torch.zeros_like(beta) if b is None else b
+    return w_f, (b0 - mean) * s + beta
+
+
+def can_fuse_conv_epilogue(mc) -> bool:
+    """A conv word's ReLU may fuse into the conv launch only when the word
+    has no residual op (the register reads the pre-activation value)."""
+    from .microcode import ResOp
+
+    return bool(mc.relu) and mc.res_op == ResOp.NONE
+
+
+def conv_epilogue(y: torch.Tensor, b: Optional[torch.Tensor] = None,
+                  relu: bool = False) -> torch.Tensor:
+    if b is not None:
+        y = y + b
+    if relu:
+        y = torch.relu(y)
+    return y
+
+
+def same_pads(n: int, k: int, s: int) -> Tuple[int, int]:
+    """XLA ``"SAME"`` padding (lo, hi) of one spatial dim."""
+    out = -(-n // s)
+    total = max((out - 1) * s + k - n, 0)
+    return total // 2, total - total // 2
+
+
+def _pad_same_nhwc(x: torch.Tensor, kh: int, kw: int, s: int,
+                   value: float = 0.0):
+    h_lo, h_hi = same_pads(x.shape[1], kh, s)
+    w_lo, w_hi = same_pads(x.shape[2], kw, s)
+    if h_lo or h_hi or w_lo or w_hi:
+        x = F.pad(x, (0, 0, w_lo, w_hi, h_lo, h_hi), value=value)
+    return x
+
+
+def _nchw(x):
+    return x.permute(0, 3, 1, 2)
+
+
+def _nhwc(x):
+    return x.permute(0, 2, 3, 1)
+
+
+def _oihw(w):
+    return w.permute(3, 2, 0, 1)
+
+
+def conv2d_nhwc(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
+                padding="SAME", groups: int = 1) -> torch.Tensor:
+    """NHWC x HWIO convolution with XLA padding semantics.  ``padding``
+    is ``"SAME"``, ``"VALID"`` or explicit ``((h_lo, h_hi), (w_lo,
+    w_hi))``."""
+    kh, kw = w.shape[:2]
+    if padding == "SAME":
+        x = _pad_same_nhwc(x, kh, kw, stride)
+    elif padding != "VALID":
+        (h_lo, h_hi), (w_lo, w_hi) = padding
+        x = F.pad(x, (0, 0, w_lo, w_hi, h_lo, h_hi))
+    y = F.conv2d(_nchw(x), _oihw(w), stride=stride, groups=groups)
+    return _nhwc(y)
+
+
+def pool_nhwc(x: torch.Tensor, k: int, s: int, kind: str = "max"
+              ) -> torch.Tensor:
+    """``lax.reduce_window`` max/sum pooling with SAME padding (the pad
+    value is -inf for max and 0 for the sum, divided by k*k for avg)."""
+    x = x.to(torch.float32)
+    if kind == "max":
+        xp = _pad_same_nhwc(x, k, k, s, value=float("-inf"))
+        return _nhwc(F.max_pool2d(_nchw(xp), k, s))
+    xp = _pad_same_nhwc(x, k, k, s, value=0.0)
+    return _nhwc(F.avg_pool2d(_nchw(xp), k, s))
+
+
+# ---------------------------------------------------------------------------
+# Upsample-conv phase decomposition
+# ---------------------------------------------------------------------------
+
+def zero_insert_2x(x: torch.Tensor) -> torch.Tensor:
+    n, h, w, c = x.shape
+    out = x.new_zeros((n, 2 * h, 2 * w, c))
+    out[:, ::2, ::2, :] = x
+    return out
+
+
+def upsample2x_conv3x3_naive(x: torch.Tensor, w: torch.Tensor
+                             ) -> torch.Tensor:
+    """conv3x3(zero_insert_2x(x)), SAME padding: 36 MACs per 4 outputs."""
+    return conv2d_nhwc(zero_insert_2x(x), w, 1, "SAME")
+
+
+def upsample2x_conv3x3_fused(x: torch.Tensor, w: torch.Tensor
+                             ) -> torch.Tensor:
+    """The phase-decomposed equivalent, 9 MACs per 4 outputs:
+
+        z[2i, 2j]     = w[1,1] x[i,j]
+        z[2i, 2j+1]   = w[1,0] x[i,j] + w[1,2] x[i,j+1]
+        z[2i+1, 2j]   = w[0,1] x[i,j] + w[2,1] x[i+1,j]
+        z[2i+1, 2j+1] = w[0,0] x[i,j] + w[0,2] x[i,j+1]
+                      + w[2,0] x[i+1,j] + w[2,2] x[i+1,j+1]
+    """
+    n, h, wd, _ = x.shape
+    p00 = conv2d_nhwc(x, w[1:2, 1:2], 1, "VALID")
+    p01 = conv2d_nhwc(x, w[1:2, 0::2], 1, ((0, 0), (0, 1)))
+    p10 = conv2d_nhwc(x, w[0::2, 1:2], 1, ((0, 1), (0, 0)))
+    p11 = conv2d_nhwc(x, w[0::2, 0::2], 1, ((0, 1), (0, 1)))
+    top = torch.stack([p00, p01], dim=3)            # (n, h, w, 2, c)
+    bot = torch.stack([p10, p11], dim=3)
+    out = torch.stack([top, bot], dim=2)            # (n, h, 2, w, 2, c)
+    return out.reshape(n, 2 * h, 2 * wd, -1)
+
+
+def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
+    n, h, w, c = x.shape
+    x = x[:, :, None, :, None, :].expand(n, h, 2, w, 2, c)
+    return x.reshape(n, 2 * h, 2 * w, c)

@@ -1,0 +1,274 @@
+"""Microcode interpreter: the paper's FCN module (Fig. 5) in torch ops.
+
+The hardware parses one microcode word per layer and drives fixed
+datapath units (conv / pool / upsample / post-process) against a DDR4
+data pool.  Here the data pool is an *arena* dict keyed by the words'
+address fields and the datapath units are chosen by ``mode``:
+
+    mode="reference"  plain convolutions (the oracle)
+    mode="optimized"  Winograd F(4x4, 3x3) for stride-1 3x3 convs and the
+                      phase-decomposed fused upsample
+
+With ``use_kernels=True`` the optimized datapath runs the CUDA kernels:
+every stride-1 3x3 conv through K1 (``kernels/winograd_conv``), and in
+BFP precision every 1x1 stride-1 conv through K2 (``kernels/bfp_matmul``).
+On CPU tensors those wrappers run their plain torch versions.
+
+BFP numerics (paper §III.E): with a :class:`BFPConfig`, conv inputs and
+weights go through Algorithm 1 before the MAC, the accumulator stays f32,
+and storage between layers is ``storage_dtype`` (FP16 in the paper).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from . import bfp as bfp_lib
+from . import fuse, winograd
+from .assembler import Program, STORAGE_BYTES
+from .microcode import ExtOp, LayerType, Microcode, ResOp
+
+
+@dataclasses.dataclass(frozen=True)
+class BFPConfig:
+    block_size: int = bfp_lib.DEFAULT_BLOCK
+    mantissa_bits: int = bfp_lib.DEFAULT_MANTISSA
+    rounding: str = "trunc"
+    wide_accum: bool = True
+
+
+class FCNEngine:
+    """Executes an assembled FCN :class:`Program` on NHWC tensors."""
+
+    def __init__(self, program: Program, mode: str = "reference",
+                 bfp: Optional[BFPConfig] = None,
+                 storage_dtype=torch.float32, use_kernels: bool = False,
+                 memplan=None):
+        if mode not in ("reference", "optimized"):
+            raise ValueError(mode)
+        if bfp is not None and not bfp.wide_accum:
+            raise NotImplementedError("narrow BFP accumulation is not ported")
+        self.program = program
+        self.mode = mode
+        self.bfp = bfp
+        self.storage_dtype = storage_dtype
+        self.use_kernels = use_kernels
+        # memplan: None/False -> keep every buffer; True -> the static plan
+        # of core.memplan (fusion facts, dead words, drop at last use)
+        if memplan is True:
+            from . import memplan as memplan_lib
+
+            memplan = memplan_lib.plan_program(
+                program,
+                dtype_bytes=torch.tensor([], dtype=storage_dtype)
+                .element_size())
+        self.memplan = memplan or None
+
+    # -- parameters ----------------------------------------------------------
+    def init_params(self, generator: torch.Generator,
+                    device="cpu") -> Dict[str, Dict[str, torch.Tensor]]:
+        """He-normal weights drawn on the CPU from ``generator`` (so every
+        device gets the same numbers), zero biases, identity BN."""
+        def he(shape, fan_in):
+            w = torch.randn(shape, generator=generator) * np.sqrt(2.0 / fan_in)
+            return w.to(device)
+
+        def const(v, n):
+            return torch.full((n,), v, dtype=torch.float32, device=device)
+
+        params: Dict[str, Dict[str, torch.Tensor]] = {}
+        for idx, name in self.program.weight_bindings.items():
+            mc = self.program.words[idx]
+            spec = self.program.layer_specs[idx]
+            if spec.op == "conv":
+                k, cin, cout = mc.kernel_size, mc.in_ch, mc.out_ch
+                if spec.table and spec.table.get("depthwise"):
+                    p = {"w": he((k, k, 1, cout), k * k)}
+                else:
+                    p = {"w": he((k, k, cin, cout), k * k * cin)}
+                if spec.bias:
+                    p["b"] = const(0.0, cout)
+                if spec.bn:
+                    p.update(gamma=const(1.0, cout), beta=const(0.0, cout),
+                             mean=const(0.0, cout), var=const(1.0, cout))
+                params[name] = p
+            elif spec.op == "upsample" and spec.upsample_mode == "fused":
+                cin, cout = mc.in_ch, mc.out_ch or mc.in_ch
+                params[name] = {"w": he((3, 3, cin, cout), 9 * cin)}
+        return params
+
+    def normalize_weights(self, params):
+        """Paper Fig. 4 right branch: fold BN, then BFP-normalize weights
+        (blocked along Cin)."""
+        out = {}
+        for idx, name in self.program.weight_bindings.items():
+            spec = self.program.layer_specs[idx]
+            p = dict(params[name])
+            if spec.op == "conv" and spec.bn:
+                w, b = fuse.fold_batchnorm(p["w"], p.get("b"), p["gamma"],
+                                           p["beta"], p["mean"], p["var"])
+                p = {"w": w, "b": b}
+            if self.bfp is not None and "w" in p:
+                p["w"] = self._bfp_roundtrip(p["w"], axis=-2)
+            out[name] = p
+        return out
+
+    def _bfp_roundtrip(self, x, axis):
+        return bfp_lib.roundtrip(
+            x.to(torch.float32), block_size=self.bfp.block_size,
+            mantissa_bits=self.bfp.mantissa_bits, axis=axis,
+            rounding=self.bfp.rounding)
+
+    # -- datapath units -------------------------------------------------------
+    def _conv(self, x, p, mc: Microcode, spec, *, transposed: bool = False,
+              relu: bool = False):
+        w = p["w"]
+        b = p.get("b")
+        if transposed:
+            # transposed-image mode: transpose the weight kernels too
+            w = w.transpose(0, 1)
+        depthwise = bool(spec.table and spec.table.get("depthwise"))
+        optimized_kernels = self.use_kernels and self.mode == "optimized"
+        if (self.bfp is not None and optimized_kernels and not depthwise
+                and mc.kernel_size == 1 and mc.stride_n == 1):
+            # a 1x1 conv is a matmul: K2 quantizes both operands along the
+            # contraction dim (activations along channels, weights along
+            # Cin, the same blocking as the roundtrip below)
+            from repro_torch.kernels.bfp_matmul import bfp_matmul
+
+            n, hh, ww, cin = x.shape
+            y = bfp_matmul(
+                x.to(torch.float32).reshape(-1, cin),
+                w.to(torch.float32).reshape(cin, -1),
+                block_size=self.bfp.block_size,
+                mantissa_bits=self.bfp.mantissa_bits,
+                rounding=self.bfp.rounding,
+            ).reshape(n, hh, ww, -1)
+            return fuse.conv_epilogue(y, b, relu)
+        if self.bfp is not None:
+            x = self._bfp_roundtrip(x, axis=-1)
+            # weights quantize in-call too (idempotent under trunc)
+            w = self._bfp_roundtrip(w, axis=-2)
+        x = x.to(torch.float32)
+        w = w.to(torch.float32)
+        if depthwise:
+            y = fuse.conv2d_nhwc(x, w, mc.stride_n, "SAME", groups=mc.in_ch)
+            return fuse.conv_epilogue(y, b, relu)
+        if self.mode == "optimized" and mc.kernel_size == 3 \
+                and mc.stride_n == 1:
+            if optimized_kernels:
+                from repro_torch.kernels.winograd_conv import winograd_conv2d
+
+                # bias + ReLU fused into K1's output-transform epilogue
+                return winograd_conv2d(x, w, b, relu=relu)
+            y = winograd.winograd_conv2d(x, w, padding="SAME")
+        else:
+            y = fuse.conv2d_nhwc(x, w, mc.stride_n, "SAME")
+        return fuse.conv_epilogue(y, b, relu)
+
+    @staticmethod
+    def _pool(x, mc: Microcode, spec):
+        k = 2 if mc.kernel == 0 else 3
+        return fuse.pool_nhwc(x, k, mc.stride_n, spec.pool_kind)
+
+    def _upsample(self, x, p, spec, decomposed: Optional[bool] = None):
+        if decomposed is None:
+            decomposed = spec.upsample_mode != "nearest"
+        if not decomposed:
+            return fuse.upsample_nearest_2x(x)
+        w = p["w"].to(torch.float32)
+        x = x.to(torch.float32)
+        if self.mode == "optimized":
+            return fuse.upsample2x_conv3x3_fused(x, w)
+        return fuse.upsample2x_conv3x3_naive(x, w)
+
+    # -- the interpreter loop -------------------------------------------------
+    @torch.no_grad()
+    def __call__(self, params, x: torch.Tensor, *, transposed: bool = False
+                 ) -> Dict[str, torch.Tensor]:
+        """x: (N, H, W, C) matching the program's input plane (or its
+        transpose with ``transposed=True``, paper §IV.B)."""
+        prog = self.program
+        c0, h0, w0 = prog.input_shape_chw
+        want = (w0, h0, c0) if transposed else (h0, w0, c0)
+        if tuple(x.shape[1:]) != want:
+            raise ValueError(f"input {tuple(x.shape)} != program plane {want}")
+        arena: Dict[int, torch.Tensor] = {prog.input_addr: x}
+        extents: Dict[int, int] = {prog.input_addr: h0 * w0 * c0 *
+                                   STORAGE_BYTES}
+        cache: Optional[torch.Tensor] = None
+
+        def read(addr: int, want_ch: int) -> torch.Tensor:
+            if addr in arena and arena[addr].shape[-1] == want_ch:
+                return arena[addr]
+            # concat read: memory-contiguous buffers from addr
+            parts, cur, got = [], addr, 0
+            while got < want_ch:
+                if cur not in arena:
+                    raise KeyError(f"read at {cur:#x}: no buffer (concat walk "
+                                   f"from {addr:#x}, {got}/{want_ch} ch)")
+                parts.append(arena[cur])
+                got += arena[cur].shape[-1]
+                cur += extents[cur]
+            if got != want_ch:
+                raise ValueError(f"concat channel mismatch {got}!={want_ch}")
+            return torch.cat(parts, dim=-1)
+
+        plan = self.memplan
+        indices = plan.schedule if plan is not None else range(len(prog.words))
+        for idx in indices:
+            mc = prog.words[idx]
+            wp = plan.word(idx) if plan is not None else None
+            spec = prog.layer_specs[idx]
+            xin = read(mc.in_addr, mc.in_ch)
+            name = prog.weight_bindings.get(idx)
+            p = params.get(name, {}) if name else {}
+            lt = LayerType(mc.layer_type)
+            fused_relu = False
+            if lt == LayerType.CONV:
+                eligible = (wp.fuse_relu if wp is not None
+                            else fuse.can_fuse_conv_epilogue(mc))
+                fused_relu = self.mode == "optimized" and eligible
+                y = self._conv(xin, p, mc, spec, transposed=transposed,
+                               relu=fused_relu)
+            elif lt == LayerType.POOL:
+                y = self._pool(xin, mc, spec)
+            elif lt == LayerType.UPSAMPLE:
+                y = self._upsample(xin, p, spec,
+                                   wp.fuse_upsample if wp is not None
+                                   else None)
+            else:
+                op = ExtOp(mc.ext_opcode)
+                if op == ExtOp.SIGMOID:
+                    y = torch.sigmoid(xin.to(torch.float32))
+                elif op == ExtOp.ADD:
+                    y = xin.to(torch.float32) + \
+                        read(mc.ext_addr2, mc.in_ch).to(torch.float32)
+                elif op == ExtOp.IDENTITY:
+                    y = xin
+                else:
+                    raise NotImplementedError(
+                        f"FCN engine does not implement {op!r}")
+            if mc.res_op == ResOp.CACHE:
+                cache = y
+            elif mc.res_op == ResOp.ADD:
+                assert cache is not None, "res add with empty cache register"
+                y = y + cache
+            if mc.relu and not fused_relu:
+                y = torch.relu(y)
+            # write back in storage precision (FP16 in the paper)
+            y = y.to(self.storage_dtype)
+            if wp is None or wp.store:
+                arena[mc.out_addr] = y
+                h, w, c = prog.addr_shapes[mc.out_addr]
+                extents[mc.out_addr] = h * w * c * STORAGE_BYTES
+            if wp is not None:
+                for a in wp.free_after:
+                    arena.pop(a, None)
+                    extents.pop(a, None)
+                if wp.drop_cache:
+                    cache = None
+        return {k: arena[a] for k, a in prog.outputs.items()}

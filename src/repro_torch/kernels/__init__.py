@@ -1,0 +1,41 @@
+"""Hand-written CUDA kernels for the port's main path (Hopper, sm_90a).
+
+Each package holds one kernel's wrapper beside a plain torch version of
+the same function:
+
+  winograd_conv/  K1, Winograd F(4x4, 3x3) tile contraction with the
+                  output transform, bias and ReLU fused
+  bfp_matmul/     K2, block floating-point matmul, f32 accumulation
+  cc_label/       K3, tile-local connected-component spread
+
+A wrapper runs the plain version only for tensors on the CPU; for CUDA
+tensors it launches its kernel (built at first use by ``build.py``) or
+raises.  Each wrapper counts its launches in a plain integer attribute,
+``launches``, which :func:`launch_counts` reads and
+:func:`reset_launch_counts` zeroes.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+
+def wrappers() -> Dict[str, object]:
+    """Kernel name -> the wrapper function that launches it."""
+    from .bfp_matmul.ops import bfp_matmul_quantized
+    from .cc_label.ops import local_spread_converge
+    from .winograd_conv.ops import winograd_tiles
+
+    return {
+        "winograd_tiles": winograd_tiles,
+        "bfp_matmul_quantized": bfp_matmul_quantized,
+        "local_spread_converge": local_spread_converge,
+    }
+
+
+def launch_counts() -> Dict[str, int]:
+    return {name: fn.launches for name, fn in wrappers().items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in wrappers().values():
+        fn.launches = 0

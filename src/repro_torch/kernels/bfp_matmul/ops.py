@@ -1,0 +1,102 @@
+"""K2 wrapper: block floating-point matmul.
+
+:func:`bfp_matmul` quantizes A along K (``axis=-1``) and B along K
+(``axis=0``) in torch ops (Algorithm 1, ``core/bfp.py``; a ragged last
+block is zero-padded exactly as the reference's ``_blockify``), then
+:func:`bfp_matmul_quantized` dequantizes and multiplies.  On a CUDA
+tensor that launches ``csrc/bfp_matmul.cu``; on a CPU tensor it runs
+:func:`bfp_matmul_quantized_plain`.  Mantissas travel as int16, which
+holds any ``mantissa_bits`` up to 15.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import bfp as bfp_lib
+from repro_torch.kernels import build
+
+
+def _dequantize(m: torch.Tensor, e: torch.Tensor, block_size: int,
+                mantissa_bits: int) -> torch.Tensor:
+    """(R, K) mantissas with (R, KB) exponents -> (R, K) f32, exactly."""
+    scale = bfp_lib.exp2i(e - mantissa_bits)
+    scale = scale.repeat_interleave(block_size, dim=1)[:, : m.shape[1]]
+    return m.to(torch.float32) * scale
+
+
+def bfp_matmul_quantized_plain(ma, ea, mb, eb, *, block_size: int,
+                               mantissa_bits: int) -> torch.Tensor:
+    """Plain torch version of the kernel, on the same operands."""
+    a = _dequantize(ma, ea, block_size, mantissa_bits)
+    b = _dequantize(mb.t(), eb, block_size, mantissa_bits).t()
+    return a @ b
+
+
+def bfp_matmul_quantized(ma: torch.Tensor, ea: torch.Tensor,
+                         mb: torch.Tensor, eb: torch.Tensor, *,
+                         block_size: int = bfp_lib.DEFAULT_BLOCK,
+                         mantissa_bits: int = bfp_lib.DEFAULT_MANTISSA
+                         ) -> torch.Tensor:
+    """mA (M, K) int16, eA (M, KB) int32, mB (K, N) int16, eB (N, KB)
+    int32 -> (M, N) f32."""
+    M, K = ma.shape
+    N = mb.shape[1]
+    kb = -(-K // block_size)
+    if (mb.shape[0] != K or tuple(ea.shape) != (M, kb)
+            or tuple(eb.shape) != (N, kb)):
+        raise ValueError(f"bfp_matmul_quantized: shapes {tuple(ma.shape)} "
+                         f"{tuple(ea.shape)} {tuple(mb.shape)} "
+                         f"{tuple(eb.shape)}")
+    if ma.device.type == "cpu":
+        return bfp_matmul_quantized_plain(
+            ma, ea, mb, eb, block_size=block_size,
+            mantissa_bits=mantissa_bits)
+    if ma.device.type != "cuda":
+        raise ValueError(f"bfp_matmul: unsupported device {ma.device}")
+    for t, dt in ((ma, torch.int16), (ea, torch.int32), (mb, torch.int16),
+                  (eb, torch.int32)):
+        if t.device != ma.device or t.dtype != dt or not t.is_contiguous():
+            raise ValueError("bfp_matmul_quantized takes contiguous int16 "
+                             "mantissas and int32 exponents on one device")
+    out = torch.empty((M, N), device=ma.device, dtype=torch.float32)
+    lib = build.library()
+    build.check(lib.bfp_matmul_f32(
+        ma.data_ptr(), ea.data_ptr(), mb.data_ptr(), eb.data_ptr(),
+        out.data_ptr(), M, N, K, block_size, mantissa_bits,
+        build.stream_handle(ma.device)), "bfp_matmul_f32")
+    bfp_matmul_quantized.launches += 1
+    return out
+
+
+bfp_matmul_quantized.launches = 0
+
+
+def quantize_operands(a: torch.Tensor, b: torch.Tensor, *,
+                      block_size: int = bfp_lib.DEFAULT_BLOCK,
+                      mantissa_bits: int = bfp_lib.DEFAULT_MANTISSA,
+                      rounding: str = "trunc"):
+    """A (M, K) and B (K, N) -> (mA, eA, mB, eB) in the kernel's types."""
+    if mantissa_bits > 15:
+        raise ValueError("int16 mantissas hold at most 15 mantissa bits")
+    qa = bfp_lib.quantize(a, block_size=block_size,
+                          mantissa_bits=mantissa_bits, axis=-1,
+                          rounding=rounding)
+    qb = bfp_lib.quantize(b, block_size=block_size,
+                          mantissa_bits=mantissa_bits, axis=0,
+                          rounding=rounding)
+    return (qa.mantissa.to(torch.int16).contiguous(),
+            qa.exponent.contiguous(),
+            qb.mantissa.to(torch.int16).contiguous(),
+            qb.exponent.contiguous())
+
+
+def bfp_matmul(a: torch.Tensor, b: torch.Tensor, *,
+               block_size: int = bfp_lib.DEFAULT_BLOCK,
+               mantissa_bits: int = bfp_lib.DEFAULT_MANTISSA,
+               rounding: str = "trunc") -> torch.Tensor:
+    """C = A @ B through shared-exponent BFP (A: (M, K), B: (K, N))."""
+    ma, ea, mb, eb = quantize_operands(
+        a, b, block_size=block_size, mantissa_bits=mantissa_bits,
+        rounding=rounding)
+    return bfp_matmul_quantized(ma, ea, mb, eb, block_size=block_size,
+                                mantissa_bits=mantissa_bits)

@@ -1,0 +1,214 @@
+"""The three kernel modules of repro_torch against the JAX reference.
+
+On the CPU each wrapper runs its plain torch version, which is held
+against the reference's Pallas kernel in interpret mode at the
+reference's own tolerances: K2 ``bfp_matmul`` at atol 1e-4, K1
+``winograd_conv2d`` at atol 2e-3, K3 ``cc_label`` exactly (labels,
+round counts and convergence flags).  tests/test_torch_cuda.py holds
+the CUDA kernels against these plain versions on the card.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.bfp_matmul import bfp_matmul as j_bfp_matmul
+from repro.kernels.cc_label import cc_label_pallas
+from repro.kernels.cc_label.kernel import local_spread_converge as j_local
+from repro.kernels.winograd_conv import winograd_conv2d as j_winograd
+from repro.models.fcn import postprocess as jpp
+from repro_torch import kernels
+from repro_torch.kernels.bfp_matmul import (
+    bfp_matmul, bfp_matmul_quantized, bfp_matmul_quantized_plain,
+    quantize_operands)
+from repro_torch.kernels.cc_label import (
+    cc_label_tiled, local_spread_converge, local_spread_converge_plain)
+from repro_torch.kernels.winograd_conv import winograd_conv2d, winograd_tiles
+from repro_torch.models.fcn import postprocess as pp
+
+torch.set_num_threads(2)
+
+
+def _normal(seed, shape):
+    return np.random.default_rng(seed).standard_normal(shape) \
+        .astype(np.float32)
+
+
+class TestBFPMatmul:
+    @pytest.mark.parametrize("mkn", [(8, 64, 8), (48, 100, 36),
+                                     (128, 256, 128), (17, 33, 9),
+                                     (40, 528, 16)])
+    @pytest.mark.parametrize("mantissa_bits", [7, 10])
+    def test_plain_matches_reference(self, mkn, mantissa_bits):
+        M, K, N = mkn
+        a, b = _normal(M + K, (M, K)), _normal(N + K, (K, N))
+        got = bfp_matmul(torch.from_numpy(a), torch.from_numpy(b),
+                         mantissa_bits=mantissa_bits).numpy()
+        want = np.asarray(j_bfp_matmul(jnp.asarray(a), jnp.asarray(b),
+                                       mantissa_bits=mantissa_bits,
+                                       interpret=True))
+        np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+
+    def test_concat_k_straddles_blocks(self):
+        """merge*_c1 reads a concat (16 + 512 = 528 channels): the 32-wide
+        BFP block that straddles the two sources is quantized as one."""
+        rng = np.random.default_rng(1)
+        up = rng.standard_normal((64, 16)).astype(np.float32) * 100.0
+        lat = rng.standard_normal((64, 512)).astype(np.float32) * 0.01
+        a = np.concatenate([up, lat], axis=1)
+        b = _normal(2, (528, 16))
+        ma, ea, _, _ = quantize_operands(torch.from_numpy(a),
+                                         torch.from_numpy(b))
+        assert tuple(ea.shape) == (64, 17)       # 528 = 16 * 32 + 16
+        got = bfp_matmul(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+        want = np.asarray(j_bfp_matmul(jnp.asarray(a), jnp.asarray(b),
+                                       interpret=True))
+        np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+
+    def test_cpu_runs_plain_and_counts_no_launch(self):
+        kernels.reset_launch_counts()
+        ops = quantize_operands(torch.from_numpy(_normal(0, (9, 40))),
+                                torch.from_numpy(_normal(1, (40, 5))))
+        got = bfp_matmul_quantized(*ops)
+        want = bfp_matmul_quantized_plain(*ops, block_size=32,
+                                          mantissa_bits=10)
+        assert torch.equal(got, want)
+        assert kernels.launch_counts()["bfp_matmul_quantized"] == 0
+
+
+class TestWinograd:
+    @pytest.mark.parametrize("hwcc,padding", [
+        ((5, 7, 3, 5), "SAME"), ((19, 23, 6, 10), "SAME"),
+        ((12, 4, 1, 1), "SAME"), ((6, 9, 3, 5), "VALID"),
+        ((13, 5, 4, 4), "VALID"), ((6, 6, 2, 3), "SAME")])
+    def test_plain_matches_reference(self, hwcc, padding):
+        h, w, cin, cout = hwcc
+        x, k = _normal(h, (2, h, w, cin)), _normal(w, (3, 3, cin, cout))
+        got = winograd_conv2d(torch.from_numpy(x), torch.from_numpy(k),
+                              padding=padding).numpy()
+        want = np.asarray(j_winograd(jnp.asarray(x), jnp.asarray(k),
+                                     padding=padding, interpret=True))
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got, want, atol=2e-3, rtol=2e-3)
+
+    @pytest.mark.parametrize("relu", [False, True])
+    def test_fused_bias_relu(self, relu):
+        x, k, b = (_normal(3, (2, 10, 7, 5)), _normal(4, (3, 3, 5, 6)),
+                   _normal(5, (6,)))
+        got = winograd_conv2d(torch.from_numpy(x), torch.from_numpy(k),
+                              torch.from_numpy(b), relu=relu).numpy()
+        want = np.asarray(j_winograd(jnp.asarray(x), jnp.asarray(k),
+                                     jnp.asarray(b), relu=relu,
+                                     interpret=True))
+        np.testing.assert_allclose(got, want, atol=2e-3)
+        if relu:
+            assert got.min() >= 0.0
+
+
+SHAPES = ((8, 12), (13, 9), (16, 16), (24, 20))
+
+
+def _maps(seed, n, h, w, p_link=0.5):
+    rng = np.random.default_rng(seed)
+    score = rng.uniform(0.0, 1.0, (n, h, w)).astype(np.float32)
+    links = (rng.uniform(0.0, 1.0, (n, h, w, 8)) < p_link).astype(np.float32)
+    return score, links
+
+
+class TestCCLabel:
+    @pytest.mark.parametrize("hw", SHAPES)
+    @pytest.mark.parametrize("p_link", [0.4, 0.6])
+    def test_tiled_equals_pallas_and_log_hop(self, hw, p_link):
+        score, links = _maps(hw[0] * hw[1], 2, *hw, p_link)
+        got = cc_label_tiled(torch.from_numpy(score), torch.from_numpy(links),
+                             th=8, tw=8, return_stats=True)
+        sj, lj = jnp.asarray(score), jnp.asarray(links)
+        want = cc_label_pallas(sj, lj, th=8, tw=8, interpret=True,
+                               return_stats=True)
+        for g, w in zip(got, want):
+            assert np.array_equal(g.numpy(), np.asarray(w))
+        ref = jpp.cc_label_batched(sj, lj, hop="log")
+        assert np.array_equal(got[0].numpy(), np.asarray(ref))
+
+    def test_valid_mask_and_padding(self):
+        n, h, w = 3, 24, 20
+        score, links = _maps(11, n, h, w, 0.6)
+        mask = np.zeros((n, h, w), bool)
+        for i, (vh, vw) in enumerate(((24, 20), (17, 13), (8, 20))):
+            mask[i, :vh, :vw] = True
+        got = cc_label_tiled(torch.from_numpy(score), torch.from_numpy(links),
+                             valid_mask=torch.from_numpy(mask), th=8, tw=8,
+                             return_stats=True)
+        want = cc_label_pallas(jnp.asarray(score), jnp.asarray(links),
+                               valid_mask=jnp.asarray(mask), th=8, tw=8,
+                               interpret=True, return_stats=True)
+        for g, w in zip(got, want):
+            assert np.array_equal(g.numpy(), np.asarray(w))
+        assert (got[0].numpy()[~mask] == 0).all()
+
+    def test_tile_crossing_component(self):
+        score = np.zeros((1, 16, 16), np.float32)
+        score[0, 8, :] = 1.0
+        score[0, :, 8] = 1.0
+        links = np.ones((1, 16, 16, 8), np.float32)
+        got = cc_label_tiled(torch.from_numpy(score),
+                             torch.from_numpy(links), th=8, tw=8).numpy()
+        want = np.asarray(cc_label_pallas(jnp.asarray(score),
+                                          jnp.asarray(links), th=8, tw=8,
+                                          interpret=True))
+        assert np.array_equal(got, want)
+        assert len(np.unique(got[0][score[0] > 0.5])) == 1
+
+    @pytest.mark.parametrize("seed", [0, 1])
+    def test_local_spread_plain_matches_kernel(self, seed):
+        """Phase 1 alone: labels equal the reference kernel's, and the
+        per-tile round counts are those of its while loop."""
+        score, links = _maps(seed, 2, 16, 24, 0.7)
+        pos = score > 0.5
+        lnk = np.asarray(jpp.link_symmetrize(jnp.asarray(links))) > 0.5
+        init = np.where(pos, np.arange(1, 16 * 24 + 1).reshape(16, 24), 0) \
+            .astype(np.int32)
+        args = (init, pos.astype(np.int32), lnk.astype(np.int32))
+        got, rounds = local_spread_converge_plain(
+            *(torch.from_numpy(a) for a in args), th=8, tw=8)
+        want = j_local(*(jnp.asarray(a) for a in args), th=8, tw=8,
+                       interpret=True)
+        assert np.array_equal(got.numpy(), np.asarray(want))
+        assert rounds.shape == (2, 2, 3) and int(rounds.min()) >= 1
+
+    def test_link_symmetrize_wraps_around(self):
+        """The reciprocal link is read with a wrap-around roll, as in the
+        reference (not with a zero-filled shift)."""
+        links = np.zeros((4, 5, 8), np.float32)
+        links[0, 0, 0] = 1.0          # up-left of (0, 0) wraps to (3, 4)
+        got = pp.link_symmetrize(torch.from_numpy(links)).numpy()
+        want = np.asarray(jpp.link_symmetrize(jnp.asarray(links)))
+        assert np.array_equal(got, want) and got[3, 4, 7] == 1.0
+
+
+def _meta_calls():
+    meta = torch.device("meta")
+    f32 = dict(device=meta, dtype=torch.float32)
+    i32 = dict(device=meta, dtype=torch.int32)
+    i16 = dict(device=meta, dtype=torch.int16)
+    return {
+        "winograd_tiles": lambda: winograd_tiles(
+            torch.empty((4, 36, 3), **f32), torch.empty((36, 3, 5), **f32),
+            n=1, th=2, tw=2, out_h=8, out_w=8),
+        "bfp_matmul_quantized": lambda: bfp_matmul_quantized(
+            torch.empty((4, 40), **i16), torch.empty((4, 2), **i32),
+            torch.empty((40, 3), **i16), torch.empty((3, 2), **i32)),
+        "local_spread_converge": lambda: local_spread_converge(
+            torch.empty((1, 8, 8), **i32), torch.empty((1, 8, 8), **i32),
+            torch.empty((1, 8, 8, 8), **i32), th=8, tw=8),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_meta_calls()))
+def test_wrapper_refuses_other_devices(name):
+    """A wrapper runs its plain version only for CPU tensors: on any other
+    non-CUDA device it raises instead of falling back."""
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="unsupported device"):
+        _meta_calls()[name]()
+    assert kernels.launch_counts()[name] == 0
