@@ -4,16 +4,23 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``src/repro_torch/csrc`` (into
-``build/kernels/``), then runs three phases; any failure exits non-zero
+``build/kernels/``), then runs five phases; any failure exits non-zero
 before the result line is printed.
 
-1. Kernels against their plain torch versions at the main path's shapes
-   (VGG-16 PixelLink, 512x512, batch 2): the kernel on the card, the plain
-   version on CPU copies of the same inputs, at the CPU tests' tolerances
-   (K1 atol/rtol 2e-3, K2 1e-4, K3 labels exact).  Times are CUDA-event
-   medians of 20 calls after 3 warm-up calls, for the kernel, the plain
-   version on the card and, where one PyTorch call computes the same
-   function, that call (``library_ms``, a yardstick the port never calls).
+1. Kernels against their plain torch versions at the main paths' shapes.
+   K1-K3 at VGG-16 PixelLink's (512x512, batch 2), the plain version on
+   CPU copies of the same inputs, at the CPU tests' tolerances (K1
+   atol/rtol 2e-3, K2 1e-4, K3 labels exact).  K4 at Zamba2-2.7B's
+   prefill (B 4, H 32, L 512, D 80, causal) in bf16 and f32 and at
+   TinyLlama's GQA heads with a ragged length (1, Hq 32, Hkv 4, L 1000,
+   D 64) in bf16; K5 at Zamba2's prefill (BC 16, G 1, HPG 80, Lc 128,
+   N 64, P 64); both against the plain version on the same card tensors
+   (K4 atol/rtol 2e-3 in f32, 1.6e-2 in bf16, two bf16 ulps; K5 3e-3).
+   Times are CUDA-event medians of 20 calls after 3 warm-up calls, for
+   the kernel, the plain version on the card and, where one PyTorch call
+   computes the same function, that call (``library_ms``, a yardstick the
+   port never calls: ``F.conv2d``, ``torch.matmul``,
+   ``F.scaled_dot_product_attention``).
 2. The published configuration (``configs/pixellink_std.VGG16``: width
    1.0, 512x512, merge (128, 64, 32), optimized, BFP, FP16 storage) with
    seeded random weights through ``EngineFactory``'s single-device engine
@@ -27,13 +34,28 @@ before the result line is printed.
    512), merge_ch=(128, 64, 32), device="cuda")`` answers 6 requests of
    ``RequestStream(6, seed=0, hw_range=((256, 512), (256, 512)))`` one by
    one; the boxes per request and the median latency are printed.
+4. LM serving at full width and depth: ``zamba2-2.7b`` (54 Mamba2 layers,
+   one shared attention block at 9 sites, 2.42 B parameters) with seeded
+   random bf16 weights drawn on the card, batch 4, 512-token prompts,
+   then 31 greedy decode steps through ``launch/serve_lm``'s ``prefill``
+   and ``decode``.  The counters are zeroed before the prefill: K4 must
+   run 9 times and K5 54 times, and decode must add none.  Logits are
+   finite and tokens inside the vocabulary; prefill ms, decode tokens/s
+   and the peak device memory are printed.
+5. LM parity on the card: Zamba2 at full width with 6 layers (one shared
+   attention site) in f32, batch 1.  The card's prefill logits of a
+   120-token prompt are held against the port's CPU run of the same
+   weights (max abs 1e-2), and 8 decode steps against the one-shot
+   forward over all 128 tokens at the same positions (max abs 5e-3, the
+   reference's own decode-vs-forward tolerance).
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's name
 and power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --profile`` also runs torch.profiler over one
-engine step of phase 2 and prints the device time by kernel and the
-device's busy share of the step.
+engine step of phase 2 and over one prefill and one decode step of
+phase 4, and prints the device time by kernel and the device's busy
+share of each.
 """
 import dataclasses
 import json
@@ -47,9 +69,14 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 F32_PEAK = 67e12        # H100 SXM f32 FLOP/s outside the tensor cores
+BF16_PEAK = 989e12      # H100 SXM dense bf16 FLOP/s on the tensor cores
 HBM_BYTES_S = 3.35e12   # H100 SXM device-memory rate
 BATCH = 2
 HW = (512, 512)
+LM_BATCH, LM_PROMPT, LM_TOKENS = 4, 512, 32
+FCN_KERNELS = ("winograd_tiles", "bfp_matmul_quantized",
+               "local_spread_converge")
+LM_KERNELS = ("flash_attention_padded", "ssd_chunk")
 
 
 def fail(msg: str) -> None:
@@ -77,8 +104,10 @@ def cuda_ms(torch, fn, warmup: int = 3, iters: int = 20) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-def bound(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, flops / F32_PEAK * 1e3
+def bound(nbytes: float, flops: float, peak: float = F32_PEAK):
+    """The least time in ms for the work: bytes over the memory rate or
+    operations over the peak rate for the inputs' type, the larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -201,20 +230,95 @@ def phase_kernels(torch, np):
     return rows
 
 
+def phase_lm_kernels(torch):
+    """Phase 1, K4 and K5 at the LM prefill shapes, each against its plain
+    version on the same card tensors."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (flash_attention_padded,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.ssd_scan import ssd_chunk, ssd_chunk_plain
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rows = {}
+    shapes = []
+    for name, (B, Hq, Hkv, L, D), dt in (
+            ("zamba2 prefill bf16", (LM_BATCH, 32, 32, LM_PROMPT, 80),
+             torch.bfloat16),
+            ("zamba2 prefill f32", (LM_BATCH, 32, 32, LM_PROMPT, 80),
+             torch.float32),
+            ("tinyllama GQA ragged bf16", (1, 32, 4, 1000, 64),
+             torch.bfloat16)):
+        q = torch.randn((B, Hq, L, D), generator=gen, device=dev).to(dt)
+        k = torch.randn((B, Hkv, L, D), generator=gen, device=dev).to(dt)
+        v = torch.randn((B, Hkv, L, D), generator=gen, device=dev).to(dt)
+        geo = dict(sm_scale=D ** -0.5, causal=True, kv_len=L)
+        got = flash_attention_padded(q, k, v, **geo)
+        torch.cuda.synchronize()
+        want = flash_attention_plain(q, k, v, **geo)
+        tol = 2e-3 if dt == torch.float32 else 1.6e-2
+        err = float((got.float() - want.float()).abs().max())
+        if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
+            fail(f"K4 {name}: kernel differs from plain (max abs {err})")
+        ms = cuda_ms(torch, lambda: flash_attention_padded(q, k, v, **geo))
+        plain = cuda_ms(torch, lambda: flash_attention_plain(q, k, v, **geo))
+        lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=Hq != Hkv))
+        # causal: half of the 4 B H L^2 D of QK^T and PV
+        flops = 2.0 * B * Hq * L * L * D
+        peak = F32_PEAK if dt == torch.float32 else BF16_PEAK
+        bms, by = bound(nbytes(q, k, v, got), flops, peak)
+        shapes.append(dict(shape=f"{name} q{tuple(q.shape)} kv{tuple(k.shape)}",
+                           max_abs_err=err, ms=ms, plain_ms=plain,
+                           library_ms=lib, bound_ms=bms, bound_by=by))
+        log(f"K4 {name}: max_abs_err={err:.3g} kernel {ms:.4f} ms plain "
+            f"{plain:.4f} ms sdpa {lib:.4f} ms bound {bms:.4f} ms ({by})")
+        del q, k, v, got, want
+    rows["flash_attention_padded"] = shapes
+
+    BC, G, HPG, Lc, N, P = LM_BATCH * LM_PROMPT // 128, 1, 80, 128, 64, 64
+    c = torch.randn((BC, G, Lc, N), generator=gen, device=dev) * 0.5
+    b = torch.randn((BC, G, Lc, N), generator=gen, device=dev) * 0.5
+    xdt = torch.randn((BC, G, HPG, Lc, P), generator=gen, device=dev) * 0.5
+    la = -torch.rand((BC, G, HPG, Lc, 1), generator=gen, device=dev)
+    scum = torch.cumsum(la, dim=3)
+    y, st = ssd_chunk(c, b, xdt, scum)
+    torch.cuda.synchronize()
+    wy, wst = ssd_chunk_plain(c, b, xdt, scum)
+    err = max(float((y - wy).abs().max()), float((st - wst).abs().max()))
+    if not (torch.allclose(y, wy, atol=3e-3, rtol=3e-3)
+            and torch.allclose(st, wst, atol=3e-3, rtol=3e-3)):
+        fail(f"K5: kernel differs from plain (max abs {err})")
+    ms = cuda_ms(torch, lambda: ssd_chunk(c, b, xdt, scum))
+    plain = cuda_ms(torch, lambda: ssd_chunk_plain(c, b, xdt, scum))
+    # cb once per (chunk, group), then y and the chunk-end state per head
+    flops = 2.0 * BC * G * Lc * Lc * N + 2.0 * BC * G * HPG * (
+        Lc * Lc * P + P * N * Lc)
+    bms, by = bound(nbytes(c, b, xdt, scum, y, st), flops)
+    rows["ssd_chunk"] = [dict(
+        shape=f"zamba2 prefill BC={BC} G={G} HPG={HPG} Lc={Lc} N={N} P={P}",
+        max_abs_err=err, ms=ms, plain_ms=plain, library_ms=None,
+        bound_ms=bms, bound_by=by)]
+    log(f"K5 ssd_chunk: max_abs_err={err:.3g} kernel {ms:.4f} ms plain "
+        f"{plain:.4f} ms bound {bms:.4f} ms ({by})")
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phase 2: the published configuration through the engine factory
 # ---------------------------------------------------------------------------
 
-def profile_step(torch, fn, params, x, vq) -> None:
-    """torch.profiler over one engine step: device time by kernel and the
-    device's busy share of the step's wall time."""
+def profile_step(torch, fn, *args, what="step") -> None:
+    """torch.profiler over one call of ``fn``: device time by kernel and
+    the device's busy share of the call's wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        fn(params, x, vq)
+        fn(*args)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
 
@@ -229,7 +333,7 @@ def profile_step(torch, fn, params, x, vq) -> None:
                      if getattr(e, "device_type", None) == device),
                     key=dev_us, reverse=True)
     busy = sum(dev_us(e) for e in events)
-    log(f"profile: step wall {wall_us / 1e3:.2f} ms, device busy "
+    log(f"profile: {what} wall {wall_us / 1e3:.2f} ms, device busy "
         f"{busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f}%), "
         f"{sum(e.count for e in events)} device kernels")
     for e in events[:20]:
@@ -264,7 +368,8 @@ def phase_model(torch, np, profile=False):
     first_s = time.perf_counter() - t0
     launches = kernels.launch_counts()
     want = {"winograd_tiles": 17, "bfp_matmul_quantized": 7,
-            "local_spread_converge": 1}
+            "local_spread_converge": 1, "flash_attention_padded": 0,
+            "ssd_chunk": 0}
     log(f"main path launches {launches} (first call {first_s:.3f} s)")
     if launches != want:
         fail(f"launch counts {launches} != {want} for one batch")
@@ -280,7 +385,7 @@ def phase_model(torch, np, profile=False):
     log(f"batch of {BATCH} at {HW}: median step "
         f"{statistics.median(steps) * 1e3:.2f} ms over 3")
     if profile:
-        profile_step(torch, fn, params, x, vq)
+        profile_step(torch, fn, params, x, vq, what="engine step")
 
     model = factory.model(HW, "bfp")
     maps = model.apply(params, x)
@@ -338,11 +443,141 @@ def phase_serving(torch, np):
         log(f"request {i} {req['hw']}: {len(boxes)} boxes, "
             f"{svc.stats['latency_s'][-1] * 1e3:.2f} ms")
     launches = kernels.launch_counts()
-    if min(launches.values()) < len(stream):
+    if min(launches[k] for k in FCN_KERNELS) < len(stream):
         fail(f"serving did not run every kernel per request: {launches}")
     lat = svc.stats["latency_s"]
     log(f"serving: 6 requests, median latency "
         f"{statistics.median(lat) * 1e3:.2f} ms, launches {launches}")
+
+
+# ---------------------------------------------------------------------------
+# phase 4: Zamba2-2.7B serving at full width and depth
+# ---------------------------------------------------------------------------
+
+def _finite(torch, name, t) -> None:
+    if not bool(torch.isfinite(t).all()):
+        fail(f"non-finite values in {name}")
+
+
+def phase_lm_serving(torch, profile=False):
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve_lm
+    from repro_torch.models.lm import LMModel
+
+    cfg = get_config("zamba2-2.7b")
+    model = LMModel(cfg, "cuda")
+    t0 = time.perf_counter()
+    params = model.init_params(
+        torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    log(f"zamba2-2.7b: {cfg.param_count():,} parameters drawn on the card "
+        f"in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    prompts = torch.randint(
+        0, cfg.vocab, (LM_BATCH, LM_PROMPT), device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(1))
+    max_len = LM_PROMPT + LM_TOKENS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    tok, logits, cache = serve_lm.prefill(model, params, prompts, max_len)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = kernels.launch_counts()
+    want = dict.fromkeys(launches, 0)
+    want.update(flash_attention_padded=9, ssd_chunk=54)
+    log(f"prefill launches {launches} (first call {first_ms:.1f} ms)")
+    if launches != want:
+        fail(f"prefill launch counts {launches} != {want}")
+    _finite(torch, "prefill logits", logits)
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    rest, dlogits, cache = serve_lm.decode(model, params, tok, cache,
+                                           LM_PROMPT, LM_TOKENS - 1)
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+    if any(kernels.launch_counts().values()):
+        fail(f"decode launched kernels: {kernels.launch_counts()}")
+    _finite(torch, "decode logits", dlogits)
+    gen = torch.cat([tok[:, None], rest], dim=1)
+    if gen.shape != (LM_BATCH, LM_TOKENS) or not bool(
+            ((gen >= 0) & (gen < cfg.vocab)).all()):
+        fail(f"generated tokens {tuple(gen.shape)} outside [0, {cfg.vocab})")
+    peak = torch.cuda.max_memory_allocated()
+
+    steps = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        serve_lm.prefill(model, params, prompts, max_len)
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t0) * 1e3)
+    tps = LM_BATCH * (LM_TOKENS - 1) / t_dec
+    log(f"zamba2-2.7b batch {LM_BATCH} prompt {LM_PROMPT}: prefill "
+        f"{statistics.median(steps):.2f} ms (median of 3 after the first); "
+        f"decode {LM_TOKENS - 1} steps {t_dec * 1e3:.1f} ms, {tps:.1f} "
+        f"tokens/s; peak device memory {peak / 2**30:.2f} GiB; sample "
+        f"{gen[0, :8].tolist()}")
+    if profile:
+        profile_step(torch, serve_lm.prefill, model, params, prompts,
+                     max_len, what="zamba2 prefill")
+        profile_step(torch, model.decode_step, params, rest[:, -1:], cache,
+                     max_len - 1, what="zamba2 decode step")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 5: LM parity on the card
+# ---------------------------------------------------------------------------
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    return tree.cpu()
+
+
+def phase_lm_parity(torch):
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve_lm
+    from repro_torch.models.lm import LMModel
+
+    cfg = dataclasses.replace(get_config("zamba2-2.7b"), n_layers=6,
+                              attn_every=6, param_dtype="float32",
+                              compute_dtype="float32")
+    model = LMModel(cfg, "cuda")
+    params = model.init_params(
+        torch.Generator(device="cuda").manual_seed(2))
+    prompt = torch.randint(
+        0, cfg.vocab, (1, 120), device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(3))
+    kernels.reset_launch_counts()
+    tok, logits, cache = serve_lm.prefill(model, params, prompt, 128)
+    torch.cuda.synchronize()
+    counts = {k: kernels.launch_counts()[k] for k in LM_KERNELS}
+    if counts != {"flash_attention_padded": 1, "ssd_chunk": 6}:
+        fail(f"6-layer prefill launch counts {counts}")
+
+    t0 = time.perf_counter()
+    _, cpu_logits, _ = serve_lm.prefill(LMModel(cfg, "cpu"), _to_cpu(params),
+                                        prompt.cpu(), 128)
+    cpu_s = time.perf_counter() - t0
+    d_prefill = float((logits.cpu() - cpu_logits).abs().max())
+
+    rest, dlogits, _ = serve_lm.decode(model, params, tok, cache, 120, 8)
+    seq = torch.cat([prompt, tok[:, None].long(), rest[:, :7].long()], dim=1)
+    full = model.forward(params, seq)
+    d_decode = float((dlogits - full[:, 120:128]).abs().max())
+    log(f"zamba2 6-layer f32 parity: prefill(120) card vs CPU max abs "
+        f"{d_prefill:.3g} (CPU run {cpu_s:.1f} s); 8 decode steps vs "
+        f"one-shot forward(128) max abs {d_decode:.3g}")
+    if d_prefill > 1e-2:
+        fail(f"card prefill logits differ from the CPU run by {d_prefill}")
+    if d_decode > 5e-3:
+        fail(f"decode logits differ from the forward pass by {d_decode}")
 
 
 def main() -> None:
@@ -367,9 +602,15 @@ def main() -> None:
         if "registers" in line or "spill" in line:
             log("ptxas: " + line.strip())
 
+    profile = "--profile" in sys.argv[1:]
     rows = phase_kernels(torch, np)
-    launches = phase_model(torch, np, profile="--profile" in sys.argv[1:])
+    rows.update(phase_lm_kernels(torch))
+    fcn = phase_model(torch, np, profile=profile)
     phase_serving(torch, np)
+    lm = phase_lm_serving(torch, profile=profile)
+    phase_lm_parity(torch)
+    launches = {k: fcn[k] for k in FCN_KERNELS}
+    launches.update({k: lm[k] for k in LM_KERNELS})
 
     meta = {
         "winograd_tiles": ("src/repro_torch/csrc/winograd_conv.cu",
@@ -378,6 +619,11 @@ def main() -> None:
                                  "src/repro/kernels/bfp_matmul/kernel.py:33"),
         "local_spread_converge": ("src/repro_torch/csrc/cc_label.cu",
                                   "src/repro/kernels/cc_label/kernel.py:31"),
+        "flash_attention_padded": (
+            "src/repro_torch/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention/kernel.py:30"),
+        "ssd_chunk": ("src/repro_torch/csrc/ssd_chunk.cu",
+                      "src/repro/kernels/ssd_scan/kernel.py:30"),
     }
     out = []
     for name, shapes in rows.items():

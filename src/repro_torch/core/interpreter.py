@@ -17,11 +17,15 @@ On CPU tensors those wrappers run their plain torch versions.
 BFP numerics (paper §III.E): with a :class:`BFPConfig`, conv inputs and
 weights go through Algorithm 1 before the MAC, the accumulator stays f32,
 and storage between layers is ``storage_dtype`` (FP16 in the paper).
+
+:func:`build_stream_fn` runs the same ISA over the LM datapath modules
+(``models/lm``): one microcode word per module, the residual through the
+same cache/add register, BFP-stored weights widened at use.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -272,3 +276,69 @@ class FCNEngine:
                 if wp.drop_cache:
                     cache = None
         return {k: arena[a] for k, a in prog.outputs.items()}
+
+
+# ---------------------------------------------------------------------------
+# LM stream execution: the same ISA driving the transformer datapath
+# modules (models/lm/layers.py).
+# ---------------------------------------------------------------------------
+
+# module signature: fn(params, x, *, mc, table, ctx) -> y
+ModuleFn = Callable[..., torch.Tensor]
+
+
+def _deq(p, ctx):
+    """BFP-stored weights (serving mode) widen to the compute type at
+    use; other leaves pass through."""
+    if isinstance(p, bfp_lib.BFPTensor):
+        return bfp_lib.dequantize(p).to(ctx.get("compute_dtype",
+                                                torch.bfloat16))
+    if isinstance(p, dict):
+        return {k: _deq(v, ctx) for k, v in p.items()}
+    return p
+
+
+def build_stream_fn(words: Sequence[Microcode],
+                    tables: Sequence[Dict[str, Any]],
+                    registry: Dict[ExtOp, ModuleFn],
+                    weight_bindings: Dict[int, str]):
+    """Compile a microcode segment into ``fn(params, x, ctx) -> (y, ctx)``.
+
+    ``params`` is a dict keyed by binding name.  The residual cache/add
+    register is interpreted exactly as in :class:`FCNEngine`; pre-norm
+    residuals are IDENTITY(cache) ... ATTN(add).  A transformer stack
+    calls it once per layer with that layer's slice of the stacked
+    parameters (models/lm/transformer.py).
+    """
+    words = list(words)
+
+    def fn(params, x, ctx=None):
+        ctx = {} if ctx is None else ctx
+        cache = None
+        cur = x
+        for idx, mc in enumerate(words):
+            op = ExtOp(mc.ext_opcode)
+            name = weight_bindings.get(idx)
+            p = params.get(name) if name else None
+            if p is not None:
+                p = _deq(p, ctx)
+            table = tables[mc.ext_table_idx - 1] if mc.ext_table_idx else {}
+            if op == ExtOp.IDENTITY:
+                y = cur
+            elif op == ExtOp.ADD:
+                y = cur + (cache if cache is not None else 0)
+            elif op in registry:
+                y = registry[op](p, cur, mc=mc, table=table, ctx=ctx)
+            else:
+                raise NotImplementedError(f"no module registered for {op!r}")
+            if mc.res_op == ResOp.CACHE:
+                cache = y
+            elif mc.res_op == ResOp.ADD and op != ExtOp.ADD:
+                assert cache is not None, "res add with empty cache register"
+                y = y + cache
+            if mc.relu:
+                y = torch.relu(y)
+            cur = y
+        return cur, ctx
+
+    return fn

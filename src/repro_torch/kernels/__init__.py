@@ -1,12 +1,14 @@
-"""Hand-written CUDA kernels for the port's main path (Hopper, sm_90a).
+"""Hand-written CUDA kernels for the port's main paths (Hopper, sm_90a).
 
 Each package holds one kernel's wrapper beside a plain torch version of
 the same function:
 
-  winograd_conv/  K1, Winograd F(4x4, 3x3) tile contraction with the
-                  output transform, bias and ReLU fused
-  bfp_matmul/     K2, block floating-point matmul, f32 accumulation
-  cc_label/       K3, tile-local connected-component spread
+  winograd_conv/    K1, Winograd F(4x4, 3x3) tile contraction with the
+                    output transform, bias and ReLU fused
+  bfp_matmul/       K2, block floating-point matmul, f32 accumulation
+  cc_label/         K3, tile-local connected-component spread
+  flash_attention/  K4, blockwise online-softmax attention (LM prefill)
+  ssd_scan/         K5, Mamba2 SSD intra-chunk block (LM prefill)
 
 A wrapper runs the plain version only for tensors on the CPU; for CUDA
 tensors it launches its kernel (built at first use by ``build.py``) or
@@ -23,12 +25,16 @@ def wrappers() -> Dict[str, object]:
     """Kernel name -> the wrapper function that launches it."""
     from .bfp_matmul.ops import bfp_matmul_quantized
     from .cc_label.ops import local_spread_converge
+    from .flash_attention.ops import flash_attention_padded
+    from .ssd_scan.ops import ssd_chunk
     from .winograd_conv.ops import winograd_tiles
 
     return {
         "winograd_tiles": winograd_tiles,
         "bfp_matmul_quantized": bfp_matmul_quantized,
         "local_spread_converge": local_spread_converge,
+        "flash_attention_padded": flash_attention_padded,
+        "ssd_chunk": ssd_chunk,
     }
 
 

@@ -25,13 +25,15 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("winograd_conv.cu", "bfp_matmul.cu", "cc_label.cu")
+SOURCES = ("winograd_conv.cu", "bfp_matmul.cu", "cc_label.cu",
+           "flash_attention.cu", "ssd_chunk.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 SIGNATURES = {
     # v, u, bias, out, n, th, tw, cin, cout, out_h, out_w, relu, stream
     "winograd_tile_conv": (_P, _P, _P, _P) + (_I,) * 8 + (_P,),
@@ -39,6 +41,11 @@ SIGNATURES = {
     "bfp_matmul_f32": (_P,) * 5 + (_I,) * 5 + (_P,),
     # labels, pos, lnk, out, rounds, N, H, W, th, tw, stream
     "cc_local_spread": (_P,) * 5 + (_I,) * 5 + (_P,),
+    # q, k, v, out, B, Hq, Hkv, Lq, Lkv, D, kv_len, scale, causal, dtype,
+    # stream
+    "flash_attention_fwd": (_P,) * 4 + (_I,) * 7 + (_F, _I, _I, _P),
+    # c, b, xdt, scum, y, st, BC, G, HPG, Lc, N, P, stream
+    "ssd_chunk_f32": (_P,) * 6 + (_I,) * 6 + (_P,),
 }
 
 _lock = threading.Lock()

@@ -1,1 +1,2 @@
-"""Serving: bucketed STDService and its batching helpers."""
+"""Serving: the bucketed STDService with its batching helpers, and LM
+prefill + greedy decode (``serve_lm``)."""

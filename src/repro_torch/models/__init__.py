@@ -1,1 +1,2 @@
-"""The port's models: PixelLink STD through the microcode seam."""
+"""The port's models through the microcode seam: PixelLink STD
+(``fcn``) and the LM stack (``lm``)."""

@@ -13,6 +13,10 @@ from repro_torch.core import winograd as wg
 from repro_torch.kernels.bfp_matmul import (
     bfp_matmul_quantized, bfp_matmul_quantized_plain, quantize_operands)
 from repro_torch.kernels.cc_label import cc_label_tiled, local_spread_converge
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_padded,
+                                                 flash_attention_plain)
+from repro_torch.kernels.ssd_scan import ssd_chunk, ssd_chunk_plain, ssd_scan
 from repro_torch.kernels.winograd_conv import (
     winograd_conv2d, winograd_tiles, winograd_tiles_plain)
 
@@ -71,6 +75,66 @@ class TestOnCard:
             assert torch.equal(g.cpu(), w)
         assert local_spread_converge.launches >= 1
 
+    @pytest.mark.parametrize("shape,dtype,causal,tol", [
+        ((2, 8, 2, 257, 32), torch.float32, True, 2e-3),
+        ((1, 6, 6, 100, 80), torch.float32, False, 2e-3),
+        ((2, 4, 1, 70, 128), torch.bfloat16, True, 1.6e-2),
+        ((1, 4, 4, 64, 16), torch.bfloat16, False, 1.6e-2)])
+    def test_flash_attention_kernel(self, shape, dtype, causal, tol):
+        dev = _cuda()
+        B, Hq, Hkv, L, D = shape
+        q = torch.from_numpy(_normal(0, (B, Hq, L, D)) * 0.5).to(dev, dtype)
+        k = torch.from_numpy(_normal(1, (B, Hkv, L, D)) * 0.5).to(dev, dtype)
+        v = torch.from_numpy(_normal(2, (B, Hkv, L, D))).to(dev, dtype)
+        got = flash_attention(q, k, v, causal=causal)
+        want = flash_attention_plain(q, k, v, sm_scale=D ** -0.5,
+                                     causal=causal, kv_len=L)
+        assert got.dtype == dtype
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
+        # a kv_len below the length masks the columns past it
+        got = flash_attention_padded(q, k, v, sm_scale=0.3, causal=False,
+                                     kv_len=L // 2)
+        want = flash_attention_plain(q, k, v, sm_scale=0.3, causal=False,
+                                     kv_len=L // 2)
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
+
+    @pytest.mark.parametrize("dims", [(3, 2, 3, 32, 16, 24),
+                                      (2, 1, 80, 128, 64, 64),
+                                      (2, 1, 4, 120, 128, 64),
+                                      (1, 1, 2, 8, 16, 16)])
+    def test_ssd_chunk_kernel(self, dims):
+        dev = _cuda()
+        BC, G, HPG, Lc, N, P = dims
+        c = torch.from_numpy(_normal(0, (BC, G, Lc, N)) * 0.3).to(dev)
+        b = torch.from_numpy(_normal(1, (BC, G, Lc, N)) * 0.3).to(dev)
+        xdt = torch.from_numpy(_normal(2, (BC, G, HPG, Lc, P))).to(dev)
+        la = -torch.from_numpy(np.abs(_normal(3, (BC, G, HPG, Lc, 1)))).to(dev)
+        scum = torch.cumsum(la, dim=3)
+        got = ssd_chunk(c, b, xdt, scum)
+        want = ssd_chunk_plain(c, b, xdt, scum)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, atol=3e-3, rtol=3e-3)
+
+    def test_ssd_scan_state_on_card(self):
+        """The scan with K5 and its final state against the CPU run."""
+        dev = _cuda()
+        Bz, L, H, P, G, N = 2, 96, 4, 16, 2, 8
+        x = torch.from_numpy(_normal(0, (Bz, L, H, P)))
+        dt = torch.nn.functional.softplus(
+            torch.from_numpy(_normal(1, (Bz, L, H)))) * 0.5
+        A = -torch.exp(torch.from_numpy(_normal(2, (H,))) * 0.3)
+        Bm = torch.from_numpy(_normal(3, (Bz, L, G, N)) * 0.3)
+        Cm = torch.from_numpy(_normal(4, (Bz, L, G, N)) * 0.3)
+        D = torch.from_numpy(_normal(5, (H,)))
+        args = (x, dt, A, Bm, Cm, D)
+        got = ssd_scan(*(a.to(dev) for a in args), chunk=32,
+                       return_state=True)
+        want = ssd_scan(*args, chunk=32, return_state=True)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g.cpu(), w, atol=3e-3, rtol=3e-3)
+
     def test_wrappers_count_one_launch_and_check_inputs(self):
         dev = _cuda()
         from repro_torch import kernels
@@ -87,3 +151,16 @@ class TestOnCard:
             winograd_tiles(v.transpose(0, 1).contiguous().transpose(0, 1),
                            u, **geo)
         assert kernels.launch_counts()["winograd_tiles"] == 1
+        q = torch.zeros((1, 2, 8, 16), device=dev)
+        flash_attention(q, q[:, :1].contiguous(), q[:, :1].contiguous())
+        with pytest.raises(ValueError):       # head dim above 128
+            flash_attention(*(torch.zeros((1, 1, 8, 136), device=dev),) * 3)
+        c = torch.zeros((1, 1, 8, 4), device=dev)
+        xdt = torch.zeros((1, 1, 2, 8, 4), device=dev)
+        ssd_chunk(c, c, xdt, torch.zeros((1, 1, 2, 8, 1), device=dev))
+        with pytest.raises(ValueError):       # f64 is not taken
+            ssd_chunk(c.double(), c.double(), xdt.double(),
+                      torch.zeros((1, 1, 2, 8, 1), device=dev).double())
+        counts = kernels.launch_counts()
+        assert counts["flash_attention_padded"] == 1
+        assert counts["ssd_chunk"] == 1

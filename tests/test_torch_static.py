@@ -1,5 +1,6 @@
 """Static checks on the port: no module of repro_torch, and not
-chip_smoke.py, imports JAX or the reference package ``repro``."""
+chip_smoke.py, imports JAX, the reference package ``repro`` or
+``ml_dtypes``."""
 import os
 import re
 
@@ -8,7 +9,8 @@ import pytest
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b(?!_torch)"
-    r"|from\s+repro(\.|\s)|import\s+jaxlib\b|from\s+jaxlib\b)",
+    r"|from\s+repro(\.|\s)|import\s+jaxlib\b|from\s+jaxlib\b"
+    r"|import\s+ml_dtypes\b|from\s+ml_dtypes\b)",
     re.MULTILINE)
 
 
@@ -25,7 +27,15 @@ def test_port_has_its_modules():
                  "src/repro_torch/kernels/winograd_conv/ops.py",
                  "src/repro_torch/kernels/bfp_matmul/ops.py",
                  "src/repro_torch/kernels/cc_label/ops.py",
-                 "src/repro_torch/launch/serve.py"):
+                 "src/repro_torch/kernels/flash_attention/ops.py",
+                 "src/repro_torch/kernels/ssd_scan/ops.py",
+                 "src/repro_torch/configs/base.py",
+                 "src/repro_torch/models/lm/params.py",
+                 "src/repro_torch/models/lm/layers.py",
+                 "src/repro_torch/models/lm/ssm.py",
+                 "src/repro_torch/models/lm/transformer.py",
+                 "src/repro_torch/launch/serve.py",
+                 "src/repro_torch/launch/serve_lm.py"):
         assert want in names
 
 
@@ -41,7 +51,8 @@ def test_no_jax_or_reference_import(path):
 def test_pattern_catches_the_forms():
     for line in ("import jax", "import jax.numpy as jnp", "from jax import lax",
                  "from repro.core import bfp", "import repro",
-                 "    from repro.models.fcn import postprocess"):
+                 "    from repro.models.fcn import postprocess",
+                 "import ml_dtypes", "from ml_dtypes import bfloat16"):
         assert FORBIDDEN.search(line), line
     for line in ("import repro_torch", "from repro_torch.core import bfp",
                  "# jax is the reference"):
