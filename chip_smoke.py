@@ -292,9 +292,11 @@ def phase_lm_kernels(torch):
         fail(f"K5: kernel differs from plain (max abs {err})")
     ms = cuda_ms(torch, lambda: ssd_chunk(c, b, xdt, scum))
     plain = cuda_ms(torch, lambda: ssd_chunk_plain(c, b, xdt, scum))
-    # cb once per (chunk, group), then y and the chunk-end state per head
-    flops = 2.0 * BC * G * Lc * Lc * N + 2.0 * BC * G * HPG * (
-        Lc * Lc * P + P * N * Lc)
+    # cb once per (chunk, group), then y and the chunk-end state per head;
+    # cb and W = cb * decay are lower-triangular, so cb and y count the
+    # Lc (Lc + 1) / 2 entries t >= s, at 2 operations each
+    flops = 1.0 * BC * G * Lc * (Lc + 1) * N + 1.0 * BC * G * HPG * (
+        Lc * (Lc + 1) * P + 2 * P * N * Lc)
     bms, by = bound(nbytes(c, b, xdt, scum, y, st), flops)
     rows["ssd_chunk"] = [dict(
         shape=f"zamba2 prefill BC={BC} G={G} HPG={HPG} Lc={Lc} N={N} P={P}",

@@ -78,21 +78,17 @@ def ssd_chunk(c: torch.Tensor, b: torch.Tensor, xdt: torch.Tensor,
 ssd_chunk.launches = 0
 
 
-def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-             Bm: torch.Tensor, Cm: torch.Tensor, D: torch.Tensor, *,
-             chunk: int = 128, return_state: bool = False):
-    """x (B, L, H, P), dt (B, L, H) (softplus applied), A (H,) negative,
-    Bm/Cm (B, L, G, N), D (H,) -> y (B, L, H, P) f32, and with
-    ``return_state`` also the final state (B, H, P, N)."""
+def chunk_operands(x, dt, A, Bm, Cm, chunk: int):
+    """Split (B, L, ...) into chunks of ``Lc = min(chunk, L)`` in f32:
+    xf (B, L, H, P), scum (B, nc, Lc, H) the in-chunk cumulative
+    log-decay, xdt (B, nc, Lc, H, P), Bc/Cc (B, nc, Lc, G, N)."""
     Bsz, L, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
-    hpg = H // G
     Lc = min(chunk, L)
     if L % Lc:
         raise ValueError(f"ssd_scan: length {L} is not a multiple of the "
                          f"chunk {Lc}")
     nc = L // Lc
-
     xf = x.to(F32)
     dtf = dt.to(F32)
     la = dtf * A[None, None, :]                        # (B, L, H) log-decay
@@ -100,6 +96,46 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     xdt = (xf * dtf[..., None]).reshape(Bsz, nc, Lc, H, P)
     Bc = Bm.reshape(Bsz, nc, Lc, G, N).to(F32)
     Cc = Cm.reshape(Bsz, nc, Lc, G, N).to(F32)
+    return xf, scum, xdt, Bc, Cc
+
+
+def chunk_carry(y_intra, st, scum, Cc, xf, D, return_state: bool):
+    """The inter-chunk part of the scan: carry the chunk-end states
+    ``st`` (B, nc, H, P, N) across chunks, add each chunk's inherited
+    output to ``y_intra`` (B, nc, Lc, H, P) and the D skip."""
+    Bsz, nc, Lc, H, P = y_intra.shape
+    N = st.shape[-1]
+    hpg = H // Cc.shape[3]
+    # h_c = exp(s_L)^c h_{c-1} + st_c
+    tot = torch.exp(scum[:, :, -1, :])                 # (B, nc, H)
+    h = torch.zeros((Bsz, H, P, N), device=xf.device, dtype=F32)
+    h_in = []
+    for ci in range(nc):
+        h_in.append(h)                                 # state entering chunk
+        h = h * tot[:, ci, :, None, None] + st[:, ci]
+    h_in = torch.stack(h_in, dim=1)                    # (B, nc, H, P, N)
+
+    # y_t += exp(s_t) * C_t . h_in(chunk)
+    Ch = Cc.repeat_interleave(hpg, dim=3)              # (B, nc, Lc, H, N)
+    y_inter = torch.einsum("bclhn,bchpn->bclhp",
+                           Ch * torch.exp(scum)[..., None], h_in)
+    y = (y_intra + y_inter).reshape(Bsz, nc * Lc, H, P)
+    y = y + xf * D[None, None, :, None]
+    if return_state:
+        return y, h
+    return y
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             Bm: torch.Tensor, Cm: torch.Tensor, D: torch.Tensor, *,
+             chunk: int = 128, return_state: bool = False):
+    """x (B, L, H, P), dt (B, L, H) (softplus applied), A (H,) negative,
+    Bm/Cm (B, L, G, N), D (H,) -> y (B, L, H, P) f32, and with
+    ``return_state`` also the final state (B, H, P, N)."""
+    xf, scum, xdt, Bc, Cc = chunk_operands(x, dt, A, Bm, Cm, chunk)
+    Bsz, nc, Lc, H, P = xdt.shape
+    G, N = Bc.shape[3], Bc.shape[4]
+    hpg = H // G
 
     # kernel layout: (BC, G, [HPG,] ...)
     BC = Bsz * nc
@@ -112,25 +148,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     y_intra, st = ssd_chunk(c_k, b_k, xdt_k, scum_k)
     y_intra = y_intra.reshape(Bsz, nc, H, Lc, P).permute(0, 1, 3, 2, 4)
     st = st.reshape(Bsz, nc, H, P, N)                  # chunk-local end state
-
-    # inter-chunk carry: h_c = exp(s_L)^c h_{c-1} + st_c
-    tot = torch.exp(scum[:, :, -1, :])                 # (B, nc, H)
-    h = torch.zeros((Bsz, H, P, N), device=x.device, dtype=F32)
-    h_in = []
-    for ci in range(nc):
-        h_in.append(h)                                 # state entering chunk
-        h = h * tot[:, ci, :, None, None] + st[:, ci]
-    h_in = torch.stack(h_in, dim=1)                    # (B, nc, H, P, N)
-
-    # inter-chunk output: y_t += exp(s_t) * C_t . h_in(chunk)
-    Ch = Cc.repeat_interleave(hpg, dim=3)              # (B, nc, Lc, H, N)
-    y_inter = torch.einsum("bclhn,bchpn->bclhp",
-                           Ch * torch.exp(scum)[..., None], h_in)
-    y = (y_intra + y_inter).reshape(Bsz, L, H, P)
-    y = y + xf * D[None, None, :, None]
-    if return_state:
-        return y, h
-    return y
+    return chunk_carry(y_intra, st, scum, Cc, xf, D, return_state)
 
 
 def ssd_decode_step(h, x_t, dt_t, A, B_t, C_t, D):

@@ -28,6 +28,7 @@ from .params import ParamMeta, as_dtype
 
 F32 = torch.float32
 NEG_INF = -1e30
+Q_CHUNK = 1024    # query rows per score block in _sdpa_full
 
 
 # ---------------------------------------------------------------------------
@@ -171,18 +172,18 @@ def _proj_qkv(p, x, table):
     return q, k, v
 
 
-def _sdpa_full(q, k, v, *, causal: bool, ctx) -> torch.Tensor:
+def _sdpa_full(q, k, v, *, causal: bool) -> torch.Tensor:
     """(B, L, H, hd) x (B, S, K, hd) dense attention with GQA broadcast.
     The probabilities are rounded to the compute type before P.V, as in
-    the reference; queries go in chunks of ``ctx['q_chunk']`` (1024) rows
-    so that one (B, H, chunk, S) score block is live at a time."""
+    the reference; queries go in chunks of ``Q_CHUNK`` rows so that one
+    (B, H, chunk, S) score block is live at a time."""
     B, L, H, hd = q.shape
     S, K = k.shape[1], k.shape[2]
     g = H // K
     kf = k.repeat_interleave(g, dim=2) if g > 1 else k
     vf = v.repeat_interleave(g, dim=2) if g > 1 else v
     scale = hd ** -0.5
-    chunk = min(int((ctx or {}).get("q_chunk", 1024)), L)
+    chunk = min(Q_CHUNK, L)
 
     def attend(qc, row0):
         s = _einsum_f32("blhd,bshd->bhls", qc, kf) * scale
@@ -264,7 +265,7 @@ def attention(p, x, *, mc=None, table=None, ctx=None):
                                 v.transpose(1, 2).contiguous(),
                                 causal=causal).transpose(1, 2)
         else:
-            o = _sdpa_full(q, k, v, causal=causal, ctx=ctx)
+            o = _sdpa_full(q, k, v, causal=causal)
     h, hd, m = p["wo"].shape
     return matmul_f32(o.to(x.dtype).reshape(*o.shape[:2], h * hd),
                       p["wo"].reshape(h * hd, m)).to(x.dtype)

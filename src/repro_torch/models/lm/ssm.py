@@ -20,7 +20,8 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.ssd_scan.ops import ssd_decode_step, ssd_scan
+from repro_torch.kernels.ssd_scan.ops import (chunk_carry, chunk_operands,
+                                              ssd_decode_step, ssd_scan)
 
 from .layers import _maybe_bfp, matmul_f32, rmsnorm
 from .params import ParamMeta
@@ -135,42 +136,23 @@ def mamba2_block(p, x, *, mc=None, table=None, ctx=None):
 
 
 def _ssd_xla(x, dt, A, Bm, Cm, D, *, chunk: int, return_state: bool = False):
-    """The reference's plain chunked SSD (same math as the kernel path),
-    in torch ops."""
-    Bsz, L, H, P = x.shape
-    G, N = Bm.shape[2], Bm.shape[3]
-    hpg = H // G
-    nc = L // chunk
-    xf = x.to(F32)
-    dtf = dt.to(F32)
-    la = (dtf * A[None, None, :]).reshape(Bsz, nc, chunk, H)
-    scum = torch.cumsum(la, dim=2)
-    xdt = (xf * dtf[..., None]).reshape(Bsz, nc, chunk, H, P)
-    Bc = Bm.reshape(Bsz, nc, chunk, G, N).to(F32).repeat_interleave(hpg, 3)
-    Cc = Cm.reshape(Bsz, nc, chunk, G, N).to(F32).repeat_interleave(hpg, 3)
-    cb = torch.einsum("bcthn,bcshn->bchts", Cc, Bc)
+    """The reference's plain chunked SSD: the kernel path's operands and
+    inter-chunk carry, with the intra-chunk block in torch ops on
+    per-head copies of B and C (the reference's rounding)."""
+    xf, scum, xdt, Bc, Cc = chunk_operands(x, dt, A, Bm, Cm, chunk)
+    Lc = xdt.shape[2]
+    hpg = x.shape[2] // Bm.shape[2]
+    Bh = Bc.repeat_interleave(hpg, 3)                  # (B, nc, Lc, H, N)
+    Ch = Cc.repeat_interleave(hpg, 3)
+    cb = torch.einsum("bcthn,bcshn->bchts", Ch, Bh)
     sc_h = scum.permute(0, 1, 3, 2)                    # (B, nc, H, T)
     arg = sc_h[..., :, None] - sc_h[..., None, :]
-    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
-                                device=x.device))
+    tri = torch.tril(torch.ones((Lc, Lc), dtype=torch.bool, device=x.device))
     # mask the exponent (not the product): t < s entries are exp(+large)
     dec = torch.exp(torch.where(tri, arg, torch.full_like(arg, -torch.inf)))
     y_intra = torch.einsum("bchts,bcshp->bcthp", cb * dec, xdt)
 
     s_last = scum[:, :, -1, :]                         # (B, nc, H)
-    bw = Bc * torch.exp(s_last[:, :, None, :] - scum)[..., None]
+    bw = Bh * torch.exp(s_last[:, :, None, :] - scum)[..., None]
     st = torch.einsum("bcthp,bcthn->bchpn", xdt, bw)
-
-    h = torch.zeros((Bsz, H, P, N), dtype=F32, device=x.device)
-    h_in = []
-    for c in range(nc):
-        h_in.append(h)
-        h = h * torch.exp(s_last[:, c])[..., None, None] + st[:, c]
-    h_in = torch.stack(h_in, dim=1)
-    y_inter = torch.einsum("bcthn,bchpn->bcthp",
-                           Cc * torch.exp(scum)[..., None], h_in)
-    y = (y_intra + y_inter).reshape(Bsz, L, H, P)
-    y = y + xf * D[None, None, :, None]
-    if return_state:
-        return y, h
-    return y
+    return chunk_carry(y_intra, st, scum, Cc, xf, D, return_state)

@@ -225,6 +225,8 @@ class LMModel:
             self.shared = attn_block_stream(cfg, prefix="shared_")
             self.block_kind = "hybrid"
         elif cfg.family == "audio":
+            # only param_meta runs for this family, so that count_params
+            # covers whisper-tiny; forward and caches raise (Queue 1 16c)
             self.block = attn_block_stream(cfg, cross=True)
             self.enc_block = attn_block_stream(cfg, causal=False,
                                                prefix="enc_")
