@@ -10,17 +10,27 @@ before the result line is printed.
 1. Kernels against their plain torch versions at the main paths' shapes.
    K1-K3 at VGG-16 PixelLink's (512x512, batch 2), the plain version on
    CPU copies of the same inputs, at the CPU tests' tolerances (K1
-   atol/rtol 2e-3, K2 1e-4, K3 labels exact).  K4 at Zamba2-2.7B's
-   prefill (B 4, H 32, L 512, D 80, causal) in bf16 and f32 and at
-   TinyLlama's GQA heads with a ragged length (1, Hq 32, Hkv 4, L 1000,
-   D 64) in bf16; K5 at Zamba2's prefill (BC 16, G 1, HPG 80, Lc 128,
-   N 64, P 64); both against the plain version on the same card tensors
-   (K4 atol/rtol 2e-3 in f32, 1.6e-2 in bf16, two bf16 ulps; K5 3e-3).
-   Times are CUDA-event medians of 20 calls after 3 warm-up calls, for
+   atol/rtol 2e-3, K2 1e-4, K3 labels exact); K2 at each of the seven
+   1x1-conv matmuls the engine's program sends it (read from
+   ``FCNEngine.k2_shapes``).  K4 at Zamba2-2.7B's prefill (B 4, H 32,
+   L 512, D 80, causal) in bf16 and f32, at TinyLlama's GQA heads with a
+   ragged length (1, Hq 32, Hkv 4, L 1000, D 64) and at Mistral-NeMo's
+   (1, Hq 32, Hkv 8, L 1024, D 128) in bf16; K5 at Zamba2's prefill
+   (BC 16, G 1, HPG 80, Lc 128, N 64, P 64); both against the plain
+   version on the same card tensors (K4 atol/rtol 2e-3 in f32, 1.6e-2 in
+   bf16, two bf16 ulps; K5 3e-3).
+   Times are CUDA-event medians of 20 calls after 3 warm-up calls, all
+   queued while the card sleeps so that they are device times, not the
+   host's launch time, for
    the kernel, the plain version on the card and, where one PyTorch call
    computes the same function, that call (``library_ms``, a yardstick the
    port never calls: ``F.conv2d``, ``torch.matmul``,
-   ``F.scaled_dot_product_attention``).
+   ``F.scaled_dot_product_attention``).  The bound counts K2's
+   operations at the TF32 tensor-core peak (its operands are exact in
+   TF32) and K4's bf16 at the bf16 peak.  Before phase 1,
+   ``cuobjdump -sass`` of the built library must show tensor-core
+   instructions (HGMMA) in the bf16 flash kernel and (HMMA) in every
+   bfp_matmul instantiation; the counts are printed.
 2. The published configuration (``configs/pixellink_std.VGG16``: width
    1.0, 512x512, merge (128, 64, 32), optimized, BFP, FP16 storage) with
    seeded random weights through ``EngineFactory``'s single-device engine
@@ -52,13 +62,16 @@ before the result line is printed.
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's name
 and power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.
 
-``python3 chip_smoke.py --profile`` also runs torch.profiler over one
-engine step of phase 2 and over one prefill and one decode step of
-phase 4, and prints the device time by kernel and the device's busy
-share of each.
+``python3 chip_smoke.py --profile`` also runs torch.profiler over ten
+calls of K2 (merge1_c1, head_logits), of K4 (bf16 shapes) and of their
+library calls in phase 1, over one engine step of phase 2 and over one
+prefill and one decode step of phase 4, and prints the device time by
+kernel and the device's busy share of each.
 """
 import dataclasses
 import json
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -70,7 +83,9 @@ SRC = ROOT / "src"
 
 F32_PEAK = 67e12        # H100 SXM f32 FLOP/s outside the tensor cores
 BF16_PEAK = 989e12      # H100 SXM dense bf16 FLOP/s on the tensor cores
+TF32_PEAK = 495e12      # H100 SXM dense TF32 FLOP/s on the tensor cores
 HBM_BYTES_S = 3.35e12   # H100 SXM device-memory rate
+SLEEP_CYCLES = 100_000_000   # ~50 ms of SM clock: the host queues meanwhile
 BATCH = 2
 HW = (512, 512)
 LM_BATCH, LM_PROMPT, LM_TOKENS = 4, 512, 32
@@ -89,9 +104,15 @@ def log(msg: str) -> None:
 
 
 def cuda_ms(torch, fn, warmup: int = 3, iters: int = 20) -> float:
+    """Median device time of one call of ``fn``: CUDA events around each
+    of ``iters`` calls, all queued while the card sleeps, so that the
+    host's time to launch a call is not counted where it is longer than
+    the call's device time (a call that synchronises with the host makes
+    its own pair an outlier, which the median drops)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
     events = []
     for _ in range(iters):
         start = torch.cuda.Event(enable_timing=True)
@@ -115,13 +136,66 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
+def sass_tensor_ops(library) -> dict:
+    """Mangled kernel name -> counts of HGMMA and HMMA instructions in
+    the SASS of the built library."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    res = subprocess.run([tool, "-sass", str(library)], capture_output=True,
+                         text=True)
+    if res.returncode != 0:
+        fail(f"cuobjdump -sass failed: {res.stderr.strip()[:400]}")
+    counts, name = {}, None
+    for line in res.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = {"HGMMA": 0, "HMMA": 0}
+        elif name:
+            for op in ("HGMMA", "HMMA"):
+                if re.search(rf"\b{op}\b", line):
+                    counts[name][op] += 1
+    return counts
+
+
+def check_tensor_cores(library) -> dict:
+    """The bf16 flash kernel must issue HGMMA and every bfp_matmul
+    instantiation HMMA; returns their counts by kernel."""
+    counts = sass_tensor_ops(library)
+    found = {}
+    for kernel, key, op in (("flash_attention_padded", "flash_wgmma_kernel",
+                             "HGMMA"),
+                            ("bfp_matmul_quantized", "bfp_matmul_kernel",
+                             "HMMA")):
+        names = [n for n in counts if key in n]
+        if not names:
+            fail(f"no {key} in the SASS of {library}")
+        for n in names:
+            log(f"sass: {op} x{counts[n][op]} (HGMMA {counts[n]['HGMMA']}, "
+                f"HMMA {counts[n]['HMMA']}) in {n}")
+            if counts[n][op] == 0:
+                fail(f"{n} issues no {op}: not on the tensor cores")
+        found[kernel] = {n: counts[n] for n in names}
+    return found
+
+
 # ---------------------------------------------------------------------------
 # phase 1: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def phase_kernels(torch, np):
+def profile_calls(torch, calls, n: int = 10) -> None:
+    """torch.profiler over ``n`` back-to-back calls of each (name, fn):
+    the device time by kernel and the card's busy share of the wall
+    time, which shows where a call's host time exceeds its device time."""
+    for what, fn in calls:
+        fn()
+        profile_step(torch, lambda: [fn() for _ in range(n)],
+                     what=f"{what} x{n}")
+
+
+def phase_kernels(torch, np, profile=False):
     import torch.nn.functional as F
 
+    from repro_torch.configs.pixellink_std import VGG16
     from repro_torch.core import winograd as wg
     from repro_torch.data.images import SyntheticSTDData
     from repro_torch.kernels.bfp_matmul import (
@@ -131,6 +205,7 @@ def phase_kernels(torch, np):
         local_spread_converge, local_spread_converge_plain)
     from repro_torch.kernels.winograd_conv import (
         winograd_tiles, winograd_tiles_plain)
+    from repro_torch.models.fcn import DetectionModel, build_head
     from repro_torch.models.fcn import postprocess as pp
 
     dev = torch.device("cuda")
@@ -170,10 +245,15 @@ def phase_kernels(torch, np):
         del x, v, got, want
     rows["winograd_tiles"] = shapes
 
-    # K2 at merge1_c1 (concat K = 128 + 512) and head_logits
+    # K2 at every 1x1 conv of the program (merge1_c1, K = 128 + 512
+    # concatenated, first: it leads the kernel's row)
+    engine = DetectionModel(dataclasses.replace(VGG16, image_size=HW),
+                            build_head("pixellink"), "cuda").engine
+    k2 = sorted(engine.k2_shapes(BATCH), key=lambda s: s[0] != "merge1_c1")
+    if len(k2) != 7:
+        fail(f"expected the 7 1x1 convs of VGG-16 PixelLink, got {k2}")
     shapes = []
-    for name, M, K, N in (("merge1_c1", BATCH * 32 * 32, 640, 128),
-                          ("head_logits", BATCH * 128 * 128, 32, 9)):
+    for name, M, K, N in k2:
         a = torch.relu(torch.randn((M, K), generator=gen)).to(dev)
         bm = (torch.randn((K, N), generator=gen) * (2.0 / K) ** 0.5).to(dev)
         ops = quantize_operands(a, bm)
@@ -190,13 +270,17 @@ def phase_kernels(torch, np):
         plain = cuda_ms(torch, lambda: bfp_matmul_quantized_plain(
             *ops, block_size=32, mantissa_bits=10))
         lib = cuda_ms(torch, lambda: torch.matmul(a_deq, b_deq))
-        bms, by = bound(nbytes(*ops, got), 2.0 * M * K * N)
+        bms, by = bound(nbytes(*ops, got), 2.0 * M * K * N, TF32_PEAK)
         shapes.append(dict(shape=f"{name} M={M} K={K} N={N}",
                            max_abs_err=err, ms=ms, plain_ms=plain,
                            library_ms=lib, bound_ms=bms, bound_by=by))
         log(f"K2 {name}: M={M} K={K} N={N} max_abs_err={err:.3g} "
             f"kernel {ms:.4f} ms plain {plain:.4f} ms matmul {lib:.4f} ms "
             f"bound {bms:.4f} ms ({by})")
+        if profile and name in ("merge1_c1", "head_logits"):
+            profile_calls(torch, [
+                (f"K2 {name}", lambda: bfp_matmul_quantized(*ops)),
+                (f"torch.matmul {name}", lambda: torch.matmul(a_deq, b_deq))])
     rows["bfp_matmul_quantized"] = shapes
 
     # K3 at (2, 128, 128): ground-truth maps of synthetic 512x512 text
@@ -230,7 +314,7 @@ def phase_kernels(torch, np):
     return rows
 
 
-def phase_lm_kernels(torch):
+def phase_lm_kernels(torch, profile=False):
     """Phase 1, K4 and K5 at the LM prefill shapes, each against its plain
     version on the same card tensors."""
     import torch.nn.functional as F
@@ -249,6 +333,8 @@ def phase_lm_kernels(torch):
             ("zamba2 prefill f32", (LM_BATCH, 32, 32, LM_PROMPT, 80),
              torch.float32),
             ("tinyllama GQA ragged bf16", (1, 32, 4, 1000, 64),
+             torch.bfloat16),
+            ("mistral-nemo GQA bf16 D 128", (1, 32, 8, 1024, 128),
              torch.bfloat16)):
         q = torch.randn((B, Hq, L, D), generator=gen, device=dev).to(dt)
         k = torch.randn((B, Hkv, L, D), generator=gen, device=dev).to(dt)
@@ -274,6 +360,11 @@ def phase_lm_kernels(torch):
                            library_ms=lib, bound_ms=bms, bound_by=by))
         log(f"K4 {name}: max_abs_err={err:.3g} kernel {ms:.4f} ms plain "
             f"{plain:.4f} ms sdpa {lib:.4f} ms bound {bms:.4f} ms ({by})")
+        if profile and dt == torch.bfloat16:
+            profile_calls(torch, [
+                (f"K4 {name}", lambda: flash_attention_padded(q, k, v, **geo)),
+                (f"sdpa {name}", lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=Hq != Hkv))])
         del q, k, v, got, want
     rows["flash_attention_padded"] = shapes
 
@@ -603,10 +694,11 @@ def main() -> None:
     for line in build.build_log().splitlines():
         if "registers" in line or "spill" in line:
             log("ptxas: " + line.strip())
+    sass = check_tensor_cores(build.library_path())
 
     profile = "--profile" in sys.argv[1:]
-    rows = phase_kernels(torch, np)
-    rows.update(phase_lm_kernels(torch))
+    rows = phase_kernels(torch, np, profile=profile)
+    rows.update(phase_lm_kernels(torch, profile=profile))
     fcn = phase_model(torch, np, profile=profile)
     phase_serving(torch, np)
     lm = phase_lm_serving(torch, profile=profile)
@@ -638,6 +730,8 @@ def main() -> None:
             "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
             "library_ms": first["library_ms"], "shapes": shapes,
         })
+        if name in sass:
+            out[-1]["sass"] = sass[name]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True)

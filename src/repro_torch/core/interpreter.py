@@ -127,6 +127,29 @@ class FCNEngine:
             rounding=self.bfp.rounding)
 
     # -- datapath units -------------------------------------------------------
+    def _runs_k2(self, mc: Microcode, spec) -> bool:
+        """A 1x1 stride-1 conv in bfp precision with the optimized kernels
+        is one K2 matmul."""
+        depthwise = bool(spec.table and spec.table.get("depthwise"))
+        return (self.bfp is not None and self.use_kernels
+                and self.mode == "optimized" and not depthwise
+                and mc.kernel_size == 1 and mc.stride_n == 1)
+
+    def k2_shapes(self, batch: int):
+        """(binding, M, K, N) of each K2 matmul one forward pass of a
+        ``batch`` runs, in program order."""
+        prog = self.program
+        out = []
+        for idx, mc in enumerate(prog.words):
+            if (LayerType(mc.layer_type) == LayerType.CONV
+                    and self._runs_k2(mc, prog.layer_specs[idx])
+                    and (self.memplan is None
+                         or idx in self.memplan.schedule)):
+                h, w, _ = prog.addr_shapes[mc.out_addr]
+                out.append((prog.weight_bindings.get(idx, str(idx)),
+                            batch * h * w, mc.in_ch, mc.out_ch))
+        return out
+
     def _conv(self, x, p, mc: Microcode, spec, *, transposed: bool = False,
               relu: bool = False):
         w = p["w"]
@@ -136,8 +159,7 @@ class FCNEngine:
             w = w.transpose(0, 1)
         depthwise = bool(spec.table and spec.table.get("depthwise"))
         optimized_kernels = self.use_kernels and self.mode == "optimized"
-        if (self.bfp is not None and optimized_kernels and not depthwise
-                and mc.kernel_size == 1 and mc.stride_n == 1):
+        if self._runs_k2(mc, spec):
             # a 1x1 conv is a matmul: K2 quantizes both operands along the
             # contraction dim (activations along channels, weights along
             # Cin, the same blocking as the roundtrip below)

@@ -1,31 +1,67 @@
 // K4: blockwise online-softmax attention (flash), causal or not, with GQA.
 //
-// Replaces the TPU kernel `_flash_kernel` (entry `flash_attention_padded`)
-// in src/repro/kernels/flash_attention/kernel.py.
+// Replaces the TPU kernel `_flash_kernel` (entry
+// `flash_attention_padded`, whose `pl.pallas_call` is at
+// src/repro/kernels/flash_attention/kernel.py:117).
 //
-// q (B, Hq, Lq, D), k and v (B, Hkv, Lkv, D), all contiguous, in f32 or
-// bf16; out (B, Hq, Lq, D) in q's type.  Query head h reads KV head
+// q (B, Hq, Lq, D), k and v (B, Hkv, Lkv, D), all contiguous, in bf16 or
+// f32; out (B, Hq, Lq, D) in q's type.  Query head h reads KV head
 // h / (Hq / Hkv).  Columns at or past kv_len are masked, and with `causal`
 // column c is masked for row r when c > r (global indices, Lq == Lkv as
 // in the reference).  Scores, the running max m, the normaliser l and the
-// (64 x D) accumulator are f32; the flush writes acc / max(l, 1e-30) in
-// the output type.  A ragged Lq or Lkv is masked in the kernel (rows past
-// Lq are neither read nor written, KV rows past Lkv read as zeros), so the
-// caller pads nothing.
+// accumulator are f32; the flush writes acc / max(l, 1e-30) rounded to
+// the output type (to nearest even, as torch's .to()).  Ragged Lq and Lkv
+// are handled in the kernel, so the caller pads nothing.
 //
-// What bounds it on an H100: at the Zamba2 prefill shape (B 4, H 32,
-// L 512, D 80, causal) 5.37 GFLOP against 42 MB of q/k/v/o in bf16, so
-// the f32 FMAs (67 TFLOP/s outside the tensor cores) bound it at 80 us;
-// bytes alone would take 12.5 us.
-// The design is the plain one: one 256-thread block per (64-row query
-// block, query head, batch).  The query tile, and one 64-row K and V tile
-// at a time, sit in shared memory as f32 (converted once on load).  Each
+// bf16, `flash_wgmma_kernel` (the Zamba2 prefill's 9 launches).  What
+// bounds it on an H100: at the Zamba2 shape (B 4, H 32, L 512, D 80,
+// causal) the work is 5.37 GFLOP against 42 MB of q/k/v/o, 5.4 us on the
+// bf16 tensor cores and 12.5 us of bytes, so bytes bound it; the first
+// version ran every product as f32 FMAs on the CUDA cores (80 us floor,
+// 0.47 ms measured), copied K and V with every thread and sent the score
+// tile through shared memory.  This design:
+// - one block per (64 query rows, query head, batch) with one consumer
+//   warpgroup (threads 0-127) and one producer warp (128-159);
+// - the producer's lane 0 loads Q once and then 64-row K and V tiles into
+//   a 2-stage ring with TMA (3-D tensor maps over (D, L, B*H), 128-byte
+//   swizzle), signalled by `full` mbarriers; the consumers free a stage
+//   through its `empty` mbarrier;
+// - S = Q K^T is `wgmma` m64n64k16 with both operands in shared memory
+//   (K-major) and f32 accumulators in registers; the online softmax runs
+//   on those registers (row max and sum by quad shuffles, m and l per row
+//   in registers), in the exp2 domain; S and P never touch shared memory;
+// - P is rounded to bf16 in registers, where its accumulator layout is
+//   exactly the register-A fragment of O += P V (`wgmma` m64nNk16, V the
+//   MN-major B operand in shared memory); O is rescaled by alpha in
+//   registers;
+// - the head dim is loaded as one or two 64-column TMA boxes (DH halves);
+//   the hardware zero-fills columns D..64*DH-1 and KV rows past Lkv, and
+//   Q K^T runs its k16 steps only up to D rounded up to 16.  Any D that is
+//   a multiple of 8 up to 128 is taken (24, 64, 80, 112, 128 in the
+//   configs).  Shared memory per block: (1 + 2 * 2 stages) * DH * 8 KB +
+//   1 KB of alignment slack + 40 B of barriers = 42,024 B for DH 1 and
+//   82,984 B for D = 128 (DH 2), under the 227 KB a block may use, so two
+//   blocks share an SM;
+// - masks (c >= kv_len, c > r) are applied in registers, on the tiles
+//   that hold a masked column only; the KV sweep stops at the causal
+//   limit and at kv_len; rows past Lq are not stored;
+// - the grid is (Hq, B, query blocks) with the query-block index reversed,
+//   so the blocks with the longest causal sweep start first.
+// Rounding: P enters P V in bf16 (relative error 2^-9 per weight), as the
+// TPU kernel's default-precision `jnp.dot` feeds its MXU bf16 inputs; the
+// softmax sums stay f32.  The error this adds to an output row is a
+// weighted mean of 2^-9-sized errors, well under one bf16 ulp of the
+// output at |o| near 1, so the result stays inside the 1.6e-2 (two bf16
+// ulps) tolerance against the plain f32-softmax version.
+//
+// f32, `flash_kernel<float>`: the plain CUDA-core kernel, picked by dtype
+// (TF32 would change the f32 results the f32 LM route is held to).  One
+// 256-thread block per (64-row query block, query head, batch); the query
+// tile and one 64-row K and V tile at a time sit in shared memory; each
 // thread computes a 4 x 4 patch of the 64 x 64 score tile, the 4 threads
 // of a row run the online softmax with warp shuffles, and each thread
-// accumulates a 4-row x D/16 patch of P.V in registers.  The KV sweep
-// stops at the causal limit and at kv_len, the counterpart of the
-// reference's `pl.when` early-out.  Tensor cores (wgmma on bf16 tiles)
-// and TMA are left to the PR that makes this kernel fast.
+// accumulates a 4-row x D/16 patch of P.V in registers.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -38,18 +74,417 @@ constexpr int THREADS = 256;
 constexpr int DMAX = 128;
 constexpr float NEG_INF = -1e30f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+// ---------------------------------------------------------------------------
+// bf16: wgmma + TMA
+// ---------------------------------------------------------------------------
+
+constexpr int WG_THREADS = 160;               // 4 consumer warps + 1 producer
+constexpr int STAGES = 2;                     // K/V ring depth
+constexpr int HALF_BYTES = 64 * 128;          // 64 rows x 64 bf16 columns
+constexpr float LOG2E = 1.4426950408889634f;
+
+// Q, then STAGES x (K, V), each DH halves; then 1 + 2 * STAGES barriers.
+// Mirrored by flash_attention/ops.py:wgmma_geometry.
+__host__ __device__ constexpr int wg_smem_bytes(int dh) {
+  return (1 + 2 * STAGES) * dh * HALF_BYTES + 1024 + 8 * (1 + 2 * STAGES);
 }
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16(x);   // round to nearest even, as torch's .to()
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
 }
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// returns once the phase with this parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+  }
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle.  K-major (Q, K): rows
+// of 128 B, 8-row groups 1024 B apart (SBO), LBO unused (1).  MN-major
+// (V): 64-column atoms `lbo` bytes apart (LBO), 8-row K groups 1024 B
+// apart (SBO).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving accesses of wgmma's registers across
+// the async instructions
+template <int N>
+__device__ __forceinline__ void reg_fence(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float* d, uint64_t da,
+                                                   uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float* d, const uint32_t* a,
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float* d, const uint32_t* a,
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(WG_THREADS, DH == 1 ? 3 : 2)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   __nv_bfloat16* __restrict__ out, int Hq, int Hkv, int Lq,
+                   int Lkv, int D, int kv_len, float scale_log2, int causal) {
+  constexpr int NO = 32 * DH;                 // O accumulators per thread
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qs = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* ks = qs + DH * HALF_BYTES;         // [STAGES][DH][64][64]
+  uint8_t* vs = ks + STAGES * DH * HALF_BYTES;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + STAGES * DH * HALF_BYTES);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + STAGES;
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BM;   // heaviest first
+  const int hk = h / (Hq / Hkv);
+  int kv_end = min(Lkv, kv_len);
+  if (causal) kv_end = min(kv_end, q0 + BM);
+  const int ntiles = (kv_end + BN - 1) / BN;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);                 // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4) {                             // producer
+    if (lane == 0) {
+      const int qz = b * Hq + h, kz = b * Hkv + hk;
+      mbar_expect_tx(q_full, DH * HALF_BYTES);
+      for (int c = 0; c < DH; ++c)
+        tma_load_3d(qs + c * HALF_BYTES, &tq, q_full, 64 * c, q0, qz);
+      for (int t = 0; t < ntiles; ++t) {
+        const int s = t % STAGES;
+        if (t >= STAGES) mbar_wait(&empty[s], (t / STAGES - 1) & 1);
+        mbar_expect_tx(&full[s], 2 * DH * HALF_BYTES);
+        for (int c = 0; c < DH; ++c) {
+          tma_load_3d(ks + (s * DH + c) * HALF_BYTES, &tk, &full[s], 64 * c,
+                      t * BN, kz);
+          tma_load_3d(vs + (s * DH + c) * HALF_BYTES, &tv, &full[s], 64 * c,
+                      t * BN, kz);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup.  Accumulator layout of wgmma m64nN: this thread
+  // holds rows r0 and r0 + 8, and in each 8-column block j the columns
+  // 8j + 2*(lane%4) + {0, 1}: d[4j + {0,1}] on row r0, d[4j + {2,3}] on r0+8.
+  const int r0 = q0 + warp * 16 + lane / 4;
+  const int c_lane = 2 * (lane % 4);
+  float o[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) o[i] = 0.f;
+  float m_run[2] = {NEG_INF, NEG_INF}, l_run[2] = {0.f, 0.f};
+  const int nk16 = (D + 15) / 16;
+  const uint32_t q_addr = smem_u32(qs);
+
+  mbar_wait(q_full, 0);
+  for (int t = 0; t < ntiles; ++t) {
+    const int s = t % STAGES;
+    const uint32_t k_addr = smem_u32(ks + s * DH * HALF_BYTES);
+    const uint32_t v_addr = smem_u32(vs + s * DH * HALF_BYTES);
+    mbar_wait(&full[s], (t / STAGES) & 1);
+
+    float sc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+    reg_fence<32>(sc);
+    wgmma_fence();
+    for (int kk = 0; kk < nk16; ++kk) {
+      // k16 step kk: half kk/4, 32-byte column offset within the 128-byte row
+      const uint32_t off = (kk >> 2) * HALF_BYTES + (kk & 3) * 32;
+      wgmma_m64n64k16_ss(sc, smem_desc(q_addr + off, 16),
+                         smem_desc(k_addr + off, 16), 1);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    reg_fence<32>(sc);
+
+    // online softmax in the log2 domain
+    const int c0 = t * BN + c_lane;
+    const bool masked =
+        t * BN + BN > kv_len || (causal && t * BN + BN - 1 > q0);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = sc[4 * j + e] * scale_log2;
+        if (masked) {
+          const int c = c0 + 8 * j + (e & 1), r = r0 + 8 * (e >> 1);
+          if (c >= kv_len || (causal && c > r)) x = NEG_INF;
+        }
+        sc[4 * j + e] = x;
+      }
+    float mx[2] = {m_run[0], m_run[1]};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      mx[0] = fmaxf(mx[0], fmaxf(sc[4 * j], sc[4 * j + 1]));
+      mx[1] = fmaxf(mx[1], fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+    }
+    float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      alpha[i] = exp2f(m_run[i] - mx[i]);
+      m_run[i] = mx[i];
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(sc[4 * j + e] - mx[e >> 1]);
+        sc[4 * j + e] = p;
+        sum[e >> 1] += p;
+      }
+    // l is kept per thread (its 16 columns) and reduced over the quad at
+    // the end: alpha is the same for the 4 threads of a row
+    l_run[0] = l_run[0] * alpha[0] + sum[0];
+    l_run[1] = l_run[1] * alpha[1] + sum[1];
+#pragma unroll
+    for (int j = 0; j < NO / 4; ++j) {
+      o[4 * j] *= alpha[0];
+      o[4 * j + 1] *= alpha[0];
+      o[4 * j + 2] *= alpha[1];
+      o[4 * j + 3] *= alpha[1];
+    }
+
+    // P (bf16) as the register-A fragments of the four k16 steps of P V
+    uint32_t pa[16];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        pa[4 * k + i] = pack_bf16(sc[8 * k + 2 * i], sc[8 * k + 2 * i + 1]);
+
+    reg_fence<NO>(o);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      // 16 KV rows of V: two 8-row groups of 128 B per 64-column atom
+      const uint64_t dv = smem_desc(v_addr + k * 2048, HALF_BYTES);
+      if constexpr (DH == 1)
+        wgmma_m64n64k16_rs(o, pa + 4 * k, dv);
+      else
+        wgmma_m64n128k16_rs(o, pa + 4 * k, dv);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    reg_fence<NO>(o);
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float l = l_run[i];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    inv[i] = 1.f / fmaxf(l, 1e-30f);
+  }
+  __nv_bfloat16* og = out + ((size_t)b * Hq + h) * Lq * D;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + 8 * i;
+    if (r >= Lq) continue;
+#pragma unroll
+    for (int j = 0; j < NO / 4; ++j) {
+      const int c = 8 * j + c_lane;
+      if (8 * j < D)
+        *reinterpret_cast<uint32_t*>(og + (size_t)r * D + c) =
+            pack_bf16(o[4 * j + 2 * i] * inv[i], o[4 * j + 2 * i + 1] * inv[i]);
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// the driver's tensor-map encoder, reached through the runtime so that the
+// library needs no link against libcuda
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// (B*H, L, D) bf16 as a 3-D map with 64 x 64 boxes, 128-byte swizzle; out
+// of bounds reads as zeros
+bool make_map(CUtensorMap* map, const void* base, int D, int L, int Z) {
+  EncodeTiled fn = encode_tiled();
+  if (!fn) return false;
+  cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)L, (cuuint64_t)Z};
+  cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)L * D * 2};
+  cuuint32_t box[3] = {64, 64, 1};
+  cuuint32_t estride[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+            dims, strides, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DH>
+int launch_wgmma(const void* q, const void* k, const void* v, void* out, int B,
+                 int Hq, int Hkv, int Lq, int Lkv, int D, int kv_len,
+                 float scale, int causal, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  if (!make_map(&tq, q, D, Lq, B * Hq) || !make_map(&tk, k, D, Lkv, B * Hkv) ||
+      !make_map(&tv, v, D, Lkv, B * Hkv))
+    return (int)cudaErrorInvalidValue;
+  const int smem = wg_smem_bytes(DH);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_wgmma_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(Hq, B, (Lq + BM - 1) / BM);
+  flash_wgmma_kernel<DH><<<grid, WG_THREADS, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), Hq, Hkv, Lq, Lkv, D,
+      kv_len, scale * LOG2E, causal);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// f32: the plain CUDA-core kernel
+// ---------------------------------------------------------------------------
 
 // shared memory: qs[BM][D+1], ks[BN][D+1], vs[BN][D], ss[BM][BN+1],
 // m[BM], l[BM], alpha[BM]
@@ -85,7 +520,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int i = tid; i < BM * D; i += THREADS) {
     const int r = i / D, d = i % D;
-    qs[r * ldq + d] = (q0 + r < Lq) ? to_f32(qg[(size_t)(q0 + r) * D + d]) : 0.f;
+    qs[r * ldq + d] = (q0 + r < Lq) ? qg[(size_t)(q0 + r) * D + d] : 0.f;
   }
   if (tid < BM) {
     m_s[tid] = NEG_INF;
@@ -110,8 +545,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = tid; i < BN * D; i += THREADS) {
       const int r = i / D, d = i % D;
       const bool in = k0 + r < Lkv;
-      ks[r * ldq + d] = in ? to_f32(kg[(size_t)(k0 + r) * D + d]) : 0.f;
-      vs[r * D + d] = in ? to_f32(vg[(size_t)(k0 + r) * D + d]) : 0.f;
+      ks[r * ldq + d] = in ? kg[(size_t)(k0 + r) * D + d] : 0.f;
+      vs[r * D + d] = in ? vg[(size_t)(k0 + r) * D + d] : 0.f;
     }
     __syncthreads();
 
@@ -206,17 +641,15 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < DMAX / 16; ++j) {
       if (j < ncol)
-        og[(size_t)r * D + tx + 16 * j] = from_f32<T>(acc[i][j] * inv_l);
+        og[(size_t)r * D + tx + 16 * j] = acc[i][j] * inv_l;
     }
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Hq, int Hkv, int Lq, int Lkv, int D, int kv_len, float scale,
-           int causal, cudaStream_t stream) {
-  if (D < 1 || D > DMAX || Hkv < 1 || Hq % Hkv != 0 || kv_len < 1)
-    return (int)cudaErrorInvalidValue;
+int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
+               int Hq, int Hkv, int Lq, int Lkv, int D, int kv_len,
+               float scale, int causal, cudaStream_t stream) {
+  using T = float;
   const size_t smem = smem_floats(D) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       flash_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -232,17 +665,29 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16
+// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (wgmma, D a multiple of 8)
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* out, int B, int Hq,
                                    int Hkv, int Lq, int Lkv, int D,
                                    int kv_len, float scale, int causal,
                                    int dtype, cudaStream_t stream) {
+  if (D < 1 || D > DMAX || Hkv < 1 || Hq % Hkv != 0 || kv_len < 1)
+    return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return launch<float>(q, k, v, out, B, Hq, Hkv, Lq, Lkv, D, kv_len, scale,
-                         causal, stream);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, out, B, Hq, Hkv, Lq, Lkv, D,
-                                 kv_len, scale, causal, stream);
+    return launch_f32(q, k, v, out, B, Hq, Hkv, Lq, Lkv, D, kv_len, scale,
+                      causal, stream);
+  if (dtype == 1 && D % 8 == 0) {
+    if (D <= 64)
+      return launch_wgmma<1>(q, k, v, out, B, Hq, Hkv, Lq, Lkv, D, kv_len,
+                             scale, causal, stream);
+    return launch_wgmma<2>(q, k, v, out, B, Hq, Hkv, Lq, Lkv, D, kv_len,
+                           scale, causal, stream);
+  }
   return (int)cudaErrorInvalidValue;
+}
+
+// shared-memory bytes of one bf16 block at head dim D (the wrapper's
+// geometry helper is held against this on the card)
+extern "C" int flash_wgmma_smem_bytes(int D) {
+  return wg_smem_bytes(D <= 64 ? 1 : 2);
 }

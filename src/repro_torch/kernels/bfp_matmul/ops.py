@@ -15,6 +15,38 @@ import torch
 from repro_torch.core import bfp as bfp_lib
 from repro_torch.kernels import build
 
+MIN_BLOCKS = 132            # one block per SM of an H100
+MAX_SPLITS = 8              # K splits of one tile: a cluster of blocks
+TK = 32                     # K per step of the kernel
+STAGES = 2                  # mantissa tiles in flight
+SMEM_MAX = 232448           # shared memory a block may use
+MAX_TF32_MANTISSA = 10      # above it TF32 is no longer taken as exact
+
+
+def launch_shape(M: int, N: int, K: int) -> tuple:
+    """(tile rows, tile columns, K splits) of the kernel for an (M, K) x
+    (K, N) product.  The tile is 64 x 64, or 64 x 32 for N <= 32, or
+    128 x 16 for N <= 16, so that few columns are masked; the K range is
+    split (a power of two up to 8, each split keeping at least one K
+    step) until the grid has :data:`MIN_BLOCKS` blocks."""
+    tn = 64 if N > 32 else 32 if N > 16 else 16
+    tm = 128 if tn == 16 else 64
+    tiles = -(-M // tm) * -(-N // tn)
+    steps = -(-K // TK)
+    splits = 1
+    while (splits < MAX_SPLITS and tiles * splits < MIN_BLOCKS
+           and 2 * splits <= steps):
+        splits *= 2
+    return tm, tn, splits
+
+
+def smem_bytes(tm: int, tn: int, kb: int) -> int:
+    """Dynamic shared memory of one block (csrc/bfp_matmul.cu:smem_bytes):
+    the ring of int16 mantissa tiles, the f32 tiles, the block indices of
+    each step in the ring and the tile's exponents."""
+    return STAGES * TK * (tm + tn) * 2 + (tm + tn) * (TK + 4) * 4 \
+        + STAGES * TK * 4 + (tm + tn) * kb * 4
+
 
 def _dequantize(m: torch.Tensor, e: torch.Tensor, block_size: int,
                 mantissa_bits: int) -> torch.Tensor:
@@ -53,6 +85,17 @@ def bfp_matmul_quantized(ma: torch.Tensor, ea: torch.Tensor,
             mantissa_bits=mantissa_bits)
     if ma.device.type != "cuda":
         raise ValueError(f"bfp_matmul: unsupported device {ma.device}")
+    if not 0 <= mantissa_bits <= MAX_TF32_MANTISSA:
+        raise ValueError(
+            f"bfp_matmul kernel takes mantissa_bits <= {MAX_TF32_MANTISSA} "
+            f"(the paper's width), got {mantissa_bits}: it multiplies in "
+            f"TF32 on the tensor cores, and the exactness of the "
+            f"dequantized operands there is held only up to that width")
+    tm, tn, splits = launch_shape(M, N, K)
+    if smem_bytes(tm, tn, kb) > SMEM_MAX:
+        raise ValueError(f"bfp_matmul kernel: {kb} exponent blocks along K "
+                         f"do not fit in shared memory (block_size "
+                         f"{block_size}, K {K})")
     for t, dt in ((ma, torch.int16), (ea, torch.int32), (mb, torch.int16),
                   (eb, torch.int32)):
         if t.device != ma.device or t.dtype != dt or not t.is_contiguous():
@@ -62,7 +105,7 @@ def bfp_matmul_quantized(ma: torch.Tensor, ea: torch.Tensor,
     lib = build.library()
     build.check(lib.bfp_matmul_f32(
         ma.data_ptr(), ea.data_ptr(), mb.data_ptr(), eb.data_ptr(),
-        out.data_ptr(), M, N, K, block_size, mantissa_bits,
+        out.data_ptr(), M, N, K, block_size, mantissa_bits, tm, tn, splits,
         build.stream_handle(ma.device)), "bfp_matmul_f32")
     bfp_matmul_quantized.launches += 1
     return out

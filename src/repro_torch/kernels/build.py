@@ -37,13 +37,16 @@ _F = ctypes.c_float
 SIGNATURES = {
     # v, u, bias, out, n, th, tw, cin, cout, out_h, out_w, relu, stream
     "winograd_tile_conv": (_P, _P, _P, _P) + (_I,) * 8 + (_P,),
-    # ma, ea, mb, eb, out, M, N, K, block_size, mantissa_bits, stream
-    "bfp_matmul_f32": (_P,) * 5 + (_I,) * 5 + (_P,),
+    # ma, ea, mb, eb, out, M, N, K, block_size, mantissa_bits, tile_m,
+    # tile_n, splits, stream
+    "bfp_matmul_f32": (_P,) * 5 + (_I,) * 8 + (_P,),
     # labels, pos, lnk, out, rounds, N, H, W, th, tw, stream
     "cc_local_spread": (_P,) * 5 + (_I,) * 5 + (_P,),
     # q, k, v, out, B, Hq, Hkv, Lq, Lkv, D, kv_len, scale, causal, dtype,
     # stream
     "flash_attention_fwd": (_P,) * 4 + (_I,) * 7 + (_F, _I, _I, _P),
+    # D -> shared-memory bytes of one bf16 block
+    "flash_wgmma_smem_bytes": (_I,),
     # c, b, xdt, scum, y, st, BC, G, HPG, Lc, N, P, stream
     "ssd_chunk_f32": (_P,) * 6 + (_I,) * 6 + (_P,),
 }

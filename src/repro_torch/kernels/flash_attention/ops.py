@@ -4,8 +4,11 @@
 default); :func:`flash_attention_padded` runs the kernel on a CUDA tensor
 (``csrc/flash_attention.cu``) and :func:`flash_attention_plain` on a CPU
 tensor.  The CUDA kernel masks a ragged length itself, so nothing is
-padded.  :func:`decode_attention`, one new token against a KV cache,
-stays torch ops, as the reference keeps it jnp.
+padded.  In bf16 it runs on the tensor cores (``wgmma``, K/V fed by TMA)
+and takes any head dim that is a multiple of 8 up to 128
+(:func:`wgmma_geometry`); in f32 it runs on the CUDA cores and takes any
+head dim up to 128.  :func:`decode_attention`, one new token against a
+KV cache, stays torch ops, as the reference keeps it jnp.
 """
 from __future__ import annotations
 
@@ -17,6 +20,24 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+KV_STAGES = 2               # K/V ring depth of the bf16 kernel
+HALF_BYTES = 64 * 128       # one 64-row box of 64 bf16 columns
+
+
+def wgmma_geometry(head_dim: int) -> tuple:
+    """(64-column halves, shared-memory bytes per block) of the bf16
+    kernel at this head dim (csrc/flash_attention.cu:wg_smem_bytes): Q
+    and a ring of K and V tiles, each one or two 64-column TMA boxes,
+    1 KB of alignment slack and the mbarriers.  Raises for a head dim
+    the kernel does not take."""
+    if head_dim % 8 or not 8 <= head_dim <= 128:
+        raise ValueError(f"flash_attention bf16 kernel takes a head dim "
+                         f"that is a multiple of 8 up to 128, got "
+                         f"{head_dim}")
+    halves = 1 if head_dim <= 64 else 2
+    smem = (1 + 2 * KV_STAGES) * halves * HALF_BYTES + 1024 \
+        + 8 * (1 + 2 * KV_STAGES)
+    return halves, smem
 
 
 def flash_attention_plain(q, k, v, *, sm_scale: float, causal: bool,
@@ -62,6 +83,11 @@ def flash_attention_padded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if t.device != q.device or t.dtype != q.dtype or not t.is_contiguous():
             raise ValueError("flash_attention takes contiguous q, k, v of "
                              "one type on one device")
+    if q.dtype == torch.bfloat16:
+        wgmma_geometry(D)
+        if any(t.data_ptr() % 16 for t in (q, k, v)):   # TMA's alignment
+            raise ValueError("flash_attention bf16 takes 16-byte aligned "
+                             "q, k, v")
     out = torch.empty_like(q)
     lib = build.library()
     build.check(lib.flash_attention_fwd(

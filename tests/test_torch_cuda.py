@@ -10,12 +10,14 @@ import pytest
 import torch
 
 from repro_torch.core import winograd as wg
+from repro_torch.kernels import build
 from repro_torch.kernels.bfp_matmul import (
     bfp_matmul_quantized, bfp_matmul_quantized_plain, quantize_operands)
 from repro_torch.kernels.cc_label import cc_label_tiled, local_spread_converge
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_padded,
                                                  flash_attention_plain)
+from repro_torch.kernels.flash_attention.ops import wgmma_geometry
 from repro_torch.kernels.ssd_scan import ssd_chunk, ssd_chunk_plain, ssd_scan
 from repro_torch.kernels.winograd_conv import (
     winograd_conv2d, winograd_tiles, winograd_tiles_plain)
@@ -65,6 +67,39 @@ class TestOnCard:
                                           mantissa_bits=10)
         torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
 
+    @pytest.mark.parametrize("mkn", [(130, 37, 70), (257, 200, 9),
+                                     (2048, 640, 128), (64, 33, 17),
+                                     (1000, 96, 16), (300, 515, 100),
+                                     (9000, 40, 33)])
+    @pytest.mark.parametrize("block_size", [16, 32])
+    @pytest.mark.parametrize("mantissa_bits", [7, 10])
+    def test_bfp_matmul_ragged(self, mkn, block_size, mantissa_bits):
+        """Ragged M, N and K (K % 8 != 0 takes the scalar loads), N = 9,
+        1, 2, 4 and 8 K splits, both block sizes and widths, and an
+        all-zero block in A and B."""
+        dev = _cuda()
+        M, K, N = mkn
+        a = _normal(M + K, (M, K)) * 4.0
+        b = _normal(K + N, (K, N))
+        a[:, :block_size] = 0.0          # all-zero blocks of every row
+        b[block_size: 2 * block_size] = 0.0
+        ops = quantize_operands(torch.from_numpy(a).to(dev),
+                                torch.from_numpy(b).to(dev),
+                                block_size=block_size,
+                                mantissa_bits=mantissa_bits)
+        geo = dict(block_size=block_size, mantissa_bits=mantissa_bits)
+        got = bfp_matmul_quantized(*ops, **geo)
+        want = bfp_matmul_quantized_plain(*ops, **geo)
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+    def test_bfp_matmul_refuses_wide_mantissas(self):
+        dev = _cuda()
+        ops = quantize_operands(torch.ones((8, 32), device=dev),
+                                torch.ones((32, 8), device=dev),
+                                mantissa_bits=11)
+        with pytest.raises(ValueError, match="TF32"):
+            bfp_matmul_quantized(*ops, mantissa_bits=11)
+
     def test_cc_kernel(self):
         dev = _cuda()
         score, links = _maps(3, 2, 64, 96, 0.7)
@@ -99,6 +134,37 @@ class TestOnCard:
                                      kv_len=L // 2)
         torch.testing.assert_close(got.float(), want.float(), atol=tol,
                                    rtol=tol)
+
+    @pytest.mark.parametrize("D", [24, 64, 80, 112, 128])
+    @pytest.mark.parametrize("L,group", [(257, 4), (1000, 8)])
+    def test_flash_attention_bf16_tensor_cores(self, D, L, group):
+        """The wgmma kernel at every head dim of the configs, lengths that
+        are not a multiple of the 64-row KV tile, GQA groups 4 and 8;
+        causal, then non-causal with kv_len < L."""
+        dev = _cuda()
+        B, Hkv = 2, 2
+        Hq = Hkv * group
+        q = torch.from_numpy(_normal(D, (B, Hq, L, D))).to(dev, torch.bfloat16)
+        k = torch.from_numpy(_normal(L, (B, Hkv, L, D))).to(dev,
+                                                           torch.bfloat16)
+        v = torch.from_numpy(_normal(7, (B, Hkv, L, D))).to(dev,
+                                                           torch.bfloat16)
+        for causal, kv_len in ((True, L), (False, L - 70)):
+            geo = dict(sm_scale=D ** -0.5, causal=causal, kv_len=kv_len)
+            got = flash_attention_padded(q, k, v, **geo)
+            want = flash_attention_plain(q, k, v, **geo)
+            torch.testing.assert_close(got.float(), want.float(), atol=1.6e-2,
+                                       rtol=1.6e-2)
+
+    def test_flash_attention_bf16_geometry_and_refusals(self):
+        dev = _cuda()
+        lib = build.library()
+        for D in (8, 24, 64, 80, 112, 128):
+            assert lib.flash_wgmma_smem_bytes(D) == wgmma_geometry(D)[1]
+        for D in (20, 136):      # not a multiple of 8; above 128
+            x = torch.zeros((1, 1, 64, D), device=dev, dtype=torch.bfloat16)
+            with pytest.raises(ValueError):
+                flash_attention(x, x, x)
 
     @pytest.mark.parametrize("dims", [(3, 2, 3, 32, 16, 24),
                                       (2, 1, 80, 128, 64, 64),

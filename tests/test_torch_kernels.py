@@ -21,6 +21,7 @@ from repro_torch import kernels
 from repro_torch.kernels.bfp_matmul import (
     bfp_matmul, bfp_matmul_quantized, bfp_matmul_quantized_plain,
     quantize_operands)
+from repro_torch.kernels.bfp_matmul import ops as k2_ops
 from repro_torch.kernels.cc_label import (
     cc_label_tiled, local_spread_converge, local_spread_converge_plain)
 from repro_torch.kernels.winograd_conv import winograd_conv2d, winograd_tiles
@@ -74,6 +75,85 @@ class TestBFPMatmul:
                                           mantissa_bits=10)
         assert torch.equal(got, want)
         assert kernels.launch_counts()["bfp_matmul_quantized"] == 0
+
+
+def _operand(kind, seed, shape):
+    """Inputs that stress the BFP encoding: plain normals, zeros with
+    all-zero blocks, subnormals (alone in a block and beside normals),
+    and magnitudes spread over 2^-100 .. 2^100."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(shape).astype(np.float32)
+    if kind == "zeros":
+        x[rng.uniform(size=shape) < 0.3] = 0.0
+        x[..., :32] = 0.0
+    elif kind == "subnormal":
+        x[..., :32] = 1e-40
+        x[..., 32:40] = -3e-39
+    elif kind == "wide":
+        x = x * np.exp2(rng.integers(-100, 100, shape)).astype(np.float32)
+    return x
+
+
+class TestTensorCorePremises:
+    """What the TF32 tensor-core design of K2 rests on, checked here in
+    plain Python: dequantized operands are exact in TF32, and the tile
+    chooser fills the card and keeps narrow outputs narrow."""
+
+    @pytest.mark.parametrize("kind", ["normal", "zeros", "subnormal", "wide"])
+    @pytest.mark.parametrize("rounding", ["trunc", "nearest"])
+    @pytest.mark.parametrize("mantissa_bits", [3, 7, 10])
+    def test_dequantized_operands_exact_in_tf32(self, kind, rounding,
+                                                mantissa_bits):
+        """Clearing the low 13 f32 mantissa bits (what TF32 drops) changes
+        no dequantized operand."""
+        a = _operand(kind, mantissa_bits, (24, 100))
+        b = np.ascontiguousarray(_operand(kind, mantissa_bits + 1, (12, 100)).T)
+        for block_size in (16, 32):
+            ma, ea, mb, eb = quantize_operands(
+                torch.from_numpy(a), torch.from_numpy(b),
+                block_size=block_size, mantissa_bits=mantissa_bits,
+                rounding=rounding)
+            assert int(ma.abs().max()) <= 2 ** mantissa_bits
+            assert int(mb.abs().max()) <= 2 ** mantissa_bits
+            for m, e in ((ma, ea), (mb.t(), eb)):
+                x = k2_ops._dequantize(m, e, block_size, mantissa_bits)
+                bits = x.view(torch.int32)
+                assert torch.equal(bits & ~0x1FFF, bits)
+
+    def test_k2_shapes_of_the_program(self):
+        """The seven 1x1 convs of VGG-16 PixelLink at 512x512, batch 2,
+        as the engine's program lists them for K2."""
+        import dataclasses
+
+        from repro_torch.configs.pixellink_std import VGG16
+        from repro_torch.models.fcn import DetectionModel, build_head
+
+        engine = DetectionModel(dataclasses.replace(VGG16,
+                                                    image_size=(512, 512)),
+                                build_head("pixellink"), "cpu").engine
+        assert engine.k2_shapes(2) == [
+            ("merge1_sq", 512, 512, 128), ("merge1_c1", 2048, 640, 128),
+            ("merge2_sq", 2048, 128, 64), ("merge2_c1", 8192, 320, 64),
+            ("merge3_sq", 8192, 64, 32), ("merge3_c1", 32768, 160, 32),
+            ("head_logits", 32768, 32, 9)]
+
+    @pytest.mark.parametrize("M,K,N", [
+        (512, 512, 128), (2048, 640, 128), (2048, 128, 64), (8192, 320, 64),
+        (8192, 64, 32), (32768, 160, 32), (32768, 32, 9), (17, 33, 9),
+        (100, 8, 300), (1000, 96, 16)])
+    def test_launch_shape(self, M, K, N):
+        """Few masked columns, a full card where K allows, and splits of
+        at least one K step each."""
+        tm, tn, splits = k2_ops.launch_shape(M, N, K)
+        assert (tm, tn) in ((64, 64), (64, 32), (128, 16))
+        assert tn == 16 if N <= 16 else tn <= -(-N // 32) * 32
+        assert splits in (1, 2, 4, 8) and splits <= -(-K // k2_ops.TK)
+        blocks = -(-M // tm) * -(-N // tn) * splits
+        if (M, K, N) == (2048, 640, 128):          # merge1_c1
+            assert blocks >= 132
+        if blocks < k2_ops.MIN_BLOCKS and splits < 8:
+            assert 2 * splits > -(-K // k2_ops.TK)
+        assert k2_ops.smem_bytes(tm, tn, -(-K // 16)) <= k2_ops.SMEM_MAX
 
 
 class TestWinograd:

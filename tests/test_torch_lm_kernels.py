@@ -30,6 +30,8 @@ from repro_torch.kernels.flash_attention import (
     decode_attention, flash_attention, flash_attention_padded,
     flash_attention_plain)
 from repro_torch.kernels.flash_attention.ref import mha_reference
+from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
+from repro_torch.kernels.flash_attention.ops import wgmma_geometry
 from repro_torch.kernels.ssd_scan import ssd_chunk, ssd_decode_step, ssd_scan
 from repro_torch.kernels.ssd_scan.ref import ssd_reference
 
@@ -215,3 +217,27 @@ def test_cpu_runs_plain_and_counts_no_launch():
     ssd_scan(*(_t(a) for a in _ssd_inputs(2, 1, 16, 2, 4, 1, 4)), chunk=8)
     counts = kernels.launch_counts()
     assert counts["flash_attention_padded"] == 0 and counts["ssd_chunk"] == 0
+
+
+class TestWgmmaGeometry:
+    """The bf16 tensor-core K4 takes every head dim the configs use and
+    fits its shared memory; checked here in plain Python."""
+
+    @pytest.mark.parametrize("arch", ARCH_IDS)
+    def test_every_attention_config_is_taken(self, arch):
+        for cfg in (get_config(arch), get_smoke_config(arch)):
+            if cfg.is_attention_free:
+                continue
+            halves, smem = wgmma_geometry(cfg.hd)
+            assert halves == (1 if cfg.hd <= 64 else 2)
+            assert smem < 227 * 1024
+
+    def test_head_dim_128_shared_memory(self):
+        halves, smem = wgmma_geometry(128)
+        assert halves == 2 and smem == 5 * 2 * 64 * 128 + 1024 + 40
+        assert smem < 227 * 1024
+
+    @pytest.mark.parametrize("head_dim", [0, 4, 20, 100, 136])
+    def test_other_head_dims_raise(self, head_dim):
+        with pytest.raises(ValueError, match="multiple of 8"):
+            wgmma_geometry(head_dim)
