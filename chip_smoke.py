@@ -19,15 +19,17 @@ before the result line is printed.
    (BC 16, G 1, HPG 80, Lc 128, N 64, P 64); both against the plain
    version on the same card tensors (K4 atol/rtol 2e-3 in f32, 1.6e-2 in
    bf16, two bf16 ulps; K5 3e-3).
-   Times are CUDA-event medians of 20 calls after 3 warm-up calls, all
-   queued while the card sleeps so that they are device times, not the
-   host's launch time, for
-   the kernel, the plain version on the card and, where one PyTorch call
-   computes the same function, that call (``library_ms``, a yardstick the
-   port never calls: ``F.conv2d``, ``torch.matmul``,
-   ``F.scaled_dot_product_attention``).  The bound counts K2's
-   operations at the TF32 tensor-core peak (its operands are exact in
-   TF32) and K4's bf16 at the bf16 peak.  Before phase 1,
+   Times are CUDA-event medians of 20 calls after 3 warm-up calls, each
+   call bracketed on an idle card, so that a call shorter than its
+   host launch path counts that path (``ms``, ``plain_ms``,
+   ``library_ms``), for the kernel, the plain version on the card and,
+   where one PyTorch call computes the same function, that call (a
+   yardstick the port never calls: ``F.conv2d``, ``torch.matmul``,
+   ``F.scaled_dot_product_attention``).  The kernel and the library call
+   are timed again with all 20 calls queued while the card sleeps, which
+   leaves device time only (``device_ms``, ``library_device_ms``).  The
+   bound counts K2's operations at the TF32 tensor-core peak (its
+   operands are exact in TF32) and K4's bf16 at the bf16 peak.  Before phase 1,
    ``cuobjdump -sass`` of the built library must show tensor-core
    instructions (HGMMA) in the bf16 flash kernel and (HMMA) in every
    bfp_matmul instantiation; the counts are printed.
@@ -51,7 +53,13 @@ before the result line is printed.
    and ``decode``.  The counters are zeroed before the prefill: K4 must
    run 9 times and K5 54 times, and decode must add none.  Logits are
    finite and tokens inside the vocabulary; prefill ms, decode tokens/s
-   and the peak device memory are printed.
+   and the peak device memory are printed.  A forward pass of the same
+   weights and prompts with the plain version at every attention site
+   holds K4 against it on each of the 9 sites' own q, k, v (bf16,
+   atol/rtol 1.6e-2), and the prefill's logits are compared with that
+   plain route's and with the dense route's (``_sdpa_full``, P also
+   rounded to bf16): the differences, and the top-two gap wherever the
+   argmax differs, are printed.
 5. LM parity on the card: Zamba2 at full width with 6 layers (one shared
    attention site) in f32, batch 1.  The card's prefill logits of a
    120-token prompt are held against the port's CPU run of the same
@@ -92,6 +100,9 @@ LM_BATCH, LM_PROMPT, LM_TOKENS = 4, 512, 32
 FCN_KERNELS = ("winograd_tiles", "bfp_matmul_quantized",
                "local_spread_converge")
 LM_KERNELS = ("flash_attention_padded", "ssd_chunk")
+PORT_KERNELS = ("winograd_tile_kernel", "bfp_matmul_kernel",
+                "cc_local_kernel", "flash_kernel", "flash_wgmma_kernel",
+                "ssd_chunk_kernel")     # names of the kernels in csrc/
 
 
 def fail(msg: str) -> None:
@@ -103,16 +114,19 @@ def log(msg: str) -> None:
     print(f"[chip_smoke] {msg}", flush=True)
 
 
-def cuda_ms(torch, fn, warmup: int = 3, iters: int = 20) -> float:
-    """Median device time of one call of ``fn``: CUDA events around each
-    of ``iters`` calls, all queued while the card sleeps, so that the
-    host's time to launch a call is not counted where it is longer than
-    the call's device time (a call that synchronises with the host makes
-    its own pair an outlier, which the median drops)."""
+def cuda_ms(torch, fn, warmup: int = 3, iters: int = 20,
+            queued: bool = False) -> float:
+    """Median time of one call of ``fn`` by CUDA events around each of
+    ``iters`` calls.  On an idle card a pair brackets the host's launch
+    path too where that is longer than the call's device time; with
+    ``queued`` the calls are queued while the card sleeps and the pairs
+    bracket device time only (a call that synchronises with the host
+    makes its own pair an outlier, which the median drops)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    torch.cuda._sleep(SLEEP_CYCLES)
+    if queued:
+        torch.cuda._sleep(SLEEP_CYCLES)
     events = []
     for _ in range(iters):
         start = torch.cuda.Event(enable_timing=True)
@@ -125,11 +139,35 @@ def cuda_ms(torch, fn, warmup: int = 3, iters: int = 20) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
+def time_row(torch, kernel, plain, library=None, plain_warmup: int = 3,
+             plain_iters: int = 20):
+    """``cuda_ms`` of the kernel, its plain version and the library call,
+    and of the kernel and the library call queued (device time)."""
+    t = dict(ms=cuda_ms(torch, kernel),
+             device_ms=cuda_ms(torch, kernel, queued=True),
+             plain_ms=cuda_ms(torch, plain, warmup=plain_warmup,
+                              iters=plain_iters),
+             library_ms=None, library_device_ms=None)
+    if library is not None:
+        t["library_ms"] = cuda_ms(torch, library)
+        t["library_device_ms"] = cuda_ms(torch, library, queued=True)
+    return t
+
+
 def bound(nbytes: float, flops: float, peak: float = F32_PEAK):
     """The least time in ms for the work: bytes over the memory rate or
     operations over the peak rate for the inputs' type, the larger."""
     t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def fmt_times(t: dict, library: str = "") -> str:
+    out = (f"kernel {t['ms']:.4f} ms (device {t['device_ms']:.4f}) "
+           f"plain {t['plain_ms']:.4f} ms")
+    if library:
+        out += (f" {library} {t['library_ms']:.4f} ms (device "
+                f"{t['library_device_ms']:.4f})")
+    return out
 
 
 def nbytes(*tensors) -> int:
@@ -231,17 +269,15 @@ def phase_kernels(torch, np, profile=False):
             fail(f"K1 {name}: kernel differs from plain (max abs {err})")
         x_nchw = x.permute(0, 3, 1, 2).contiguous()
         w_oihw = w.permute(3, 2, 0, 1).contiguous()
-        ms = cuda_ms(torch, lambda: winograd_tiles(v, u, b, **geo))
-        plain = cuda_ms(torch, lambda: winograd_tiles_plain(v, u, b, **geo))
-        lib = cuda_ms(torch, lambda: F.conv2d(x_nchw, w_oihw, b, padding=1))
+        t = time_row(torch, lambda: winograd_tiles(v, u, b, **geo),
+                     lambda: winograd_tiles_plain(v, u, b, **geo),
+                     lambda: F.conv2d(x_nchw, w_oihw, b, padding=1))
         flops = 2.0 * v.shape[0] * 36 * cin * cout
         bms, by = bound(nbytes(v, u, b, got), flops)
         shapes.append(dict(shape=f"{name} x{tuple(x.shape)} w{tuple(w.shape)}",
-                           max_abs_err=err, ms=ms, plain_ms=plain,
-                           library_ms=lib, bound_ms=bms, bound_by=by))
+                           max_abs_err=err, **t, bound_ms=bms, bound_by=by))
         log(f"K1 {name}: P={v.shape[0]} max_abs_err={err:.3g} "
-            f"kernel {ms:.4f} ms plain {plain:.4f} ms conv2d {lib:.4f} ms "
-            f"bound {bms:.4f} ms ({by})")
+            f"{fmt_times(t, 'conv2d')} bound {bms:.4f} ms ({by})")
         del x, v, got, want
     rows["winograd_tiles"] = shapes
 
@@ -266,17 +302,15 @@ def phase_kernels(torch, np, profile=False):
             fail(f"K2 {name}: kernel differs from plain (max abs {err})")
         a_deq = _dequantize(ops[0], ops[1], 32, 10)
         b_deq = _dequantize(ops[2].t(), ops[3], 32, 10).t().contiguous()
-        ms = cuda_ms(torch, lambda: bfp_matmul_quantized(*ops))
-        plain = cuda_ms(torch, lambda: bfp_matmul_quantized_plain(
-            *ops, block_size=32, mantissa_bits=10))
-        lib = cuda_ms(torch, lambda: torch.matmul(a_deq, b_deq))
+        t = time_row(torch, lambda: bfp_matmul_quantized(*ops),
+                     lambda: bfp_matmul_quantized_plain(
+                         *ops, block_size=32, mantissa_bits=10),
+                     lambda: torch.matmul(a_deq, b_deq))
         bms, by = bound(nbytes(*ops, got), 2.0 * M * K * N, TF32_PEAK)
         shapes.append(dict(shape=f"{name} M={M} K={K} N={N}",
-                           max_abs_err=err, ms=ms, plain_ms=plain,
-                           library_ms=lib, bound_ms=bms, bound_by=by))
+                           max_abs_err=err, **t, bound_ms=bms, bound_by=by))
         log(f"K2 {name}: M={M} K={K} N={N} max_abs_err={err:.3g} "
-            f"kernel {ms:.4f} ms plain {plain:.4f} ms matmul {lib:.4f} ms "
-            f"bound {bms:.4f} ms ({by})")
+            f"{fmt_times(t, 'matmul')} bound {bms:.4f} ms ({by})")
         if profile and name in ("merge1_c1", "head_logits"):
             profile_calls(torch, [
                 (f"K2 {name}", lambda: bfp_matmul_quantized(*ops)),
@@ -298,19 +332,18 @@ def phase_kernels(torch, np, profile=False):
     if not (torch.equal(got.cpu(), want)
             and torch.equal(rounds.cpu(), want_rounds)):
         fail("K3: kernel labels or rounds differ from the plain version")
-    ms = cuda_ms(torch, lambda: local_spread_converge(*dargs))
-    plain = cuda_ms(torch, lambda: local_spread_converge_plain(
-        *dargs, th=32, tw=32), warmup=1, iters=10)
+    t = time_row(torch, lambda: local_spread_converge(*dargs),
+                 lambda: local_spread_converge_plain(*dargs, th=32, tw=32),
+                 plain_warmup=1, plain_iters=10)
     # each round: 8 compare-and-max per pixel of the tile
     ops3 = float(rounds.sum()) * 32 * 32 * 8 * 2
     bms, by = bound(nbytes(*dargs, got, rounds), ops3)
     rows["local_spread_converge"] = [dict(
         shape=f"labels{tuple(got.shape)} rounds={int(rounds.sum())}",
-        max_abs_err=0.0, ms=ms, plain_ms=plain, library_ms=None,
-        bound_ms=bms, bound_by=by)]
+        max_abs_err=0.0, **t, bound_ms=bms, bound_by=by)]
     log(f"K3 local spread {tuple(got.shape)}: exact, tile rounds "
-        f"{int(rounds.min())}..{int(rounds.max())}, kernel {ms:.4f} ms "
-        f"plain {plain:.4f} ms bound {bms:.5f} ms ({by})")
+        f"{int(rounds.min())}..{int(rounds.max())}, {fmt_times(t)} "
+        f"bound {bms:.5f} ms ({by})")
     return rows
 
 
@@ -347,19 +380,18 @@ def phase_lm_kernels(torch, profile=False):
         err = float((got.float() - want.float()).abs().max())
         if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
             fail(f"K4 {name}: kernel differs from plain (max abs {err})")
-        ms = cuda_ms(torch, lambda: flash_attention_padded(q, k, v, **geo))
-        plain = cuda_ms(torch, lambda: flash_attention_plain(q, k, v, **geo))
-        lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=Hq != Hkv))
+        t = time_row(torch, lambda: flash_attention_padded(q, k, v, **geo),
+                     lambda: flash_attention_plain(q, k, v, **geo),
+                     lambda: F.scaled_dot_product_attention(
+                         q, k, v, is_causal=True, enable_gqa=Hq != Hkv))
         # causal: half of the 4 B H L^2 D of QK^T and PV
         flops = 2.0 * B * Hq * L * L * D
         peak = F32_PEAK if dt == torch.float32 else BF16_PEAK
         bms, by = bound(nbytes(q, k, v, got), flops, peak)
         shapes.append(dict(shape=f"{name} q{tuple(q.shape)} kv{tuple(k.shape)}",
-                           max_abs_err=err, ms=ms, plain_ms=plain,
-                           library_ms=lib, bound_ms=bms, bound_by=by))
-        log(f"K4 {name}: max_abs_err={err:.3g} kernel {ms:.4f} ms plain "
-            f"{plain:.4f} ms sdpa {lib:.4f} ms bound {bms:.4f} ms ({by})")
+                           max_abs_err=err, **t, bound_ms=bms, bound_by=by))
+        log(f"K4 {name}: max_abs_err={err:.3g} {fmt_times(t, 'sdpa')} "
+            f"bound {bms:.4f} ms ({by})")
         if profile and dt == torch.bfloat16:
             profile_calls(torch, [
                 (f"K4 {name}", lambda: flash_attention_padded(q, k, v, **geo)),
@@ -381,8 +413,8 @@ def phase_lm_kernels(torch, profile=False):
     if not (torch.allclose(y, wy, atol=3e-3, rtol=3e-3)
             and torch.allclose(st, wst, atol=3e-3, rtol=3e-3)):
         fail(f"K5: kernel differs from plain (max abs {err})")
-    ms = cuda_ms(torch, lambda: ssd_chunk(c, b, xdt, scum))
-    plain = cuda_ms(torch, lambda: ssd_chunk_plain(c, b, xdt, scum))
+    t = time_row(torch, lambda: ssd_chunk(c, b, xdt, scum),
+                 lambda: ssd_chunk_plain(c, b, xdt, scum))
     # cb once per (chunk, group), then y and the chunk-end state per head;
     # cb and W = cb * decay are lower-triangular, so cb and y count the
     # Lc (Lc + 1) / 2 entries t >= s, at 2 operations each
@@ -391,10 +423,9 @@ def phase_lm_kernels(torch, profile=False):
     bms, by = bound(nbytes(c, b, xdt, scum, y, st), flops)
     rows["ssd_chunk"] = [dict(
         shape=f"zamba2 prefill BC={BC} G={G} HPG={HPG} Lc={Lc} N={N} P={P}",
-        max_abs_err=err, ms=ms, plain_ms=plain, library_ms=None,
-        bound_ms=bms, bound_by=by)]
-    log(f"K5 ssd_chunk: max_abs_err={err:.3g} kernel {ms:.4f} ms plain "
-        f"{plain:.4f} ms bound {bms:.4f} ms ({by})")
+        max_abs_err=err, **t, bound_ms=bms, bound_by=by)]
+    log(f"K5 ssd_chunk: max_abs_err={err:.3g} {fmt_times(t)} "
+        f"bound {bms:.4f} ms ({by})")
     return rows
 
 
@@ -429,7 +460,9 @@ def profile_step(torch, fn, *args, what="step") -> None:
     log(f"profile: {what} wall {wall_us / 1e3:.2f} ms, device busy "
         f"{busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f}%), "
         f"{sum(e.count for e in events)} device kernels")
-    for e in events[:20]:
+    # the 20 longest, then the port's own kernels among the rest
+    rest = [e for e in events[20:] if any(k in e.key for k in PORT_KERNELS)]
+    for e in events[:20] + rest:
         log(f"profile: {dev_us(e) / 1e3:9.3f} ms {e.count:5d}x "
             f"{e.key[:90]}")
 
@@ -552,6 +585,70 @@ def _finite(torch, name, t) -> None:
         fail(f"non-finite values in {name}")
 
 
+def logit_gap(torch, what, got, want) -> None:
+    """Prints how far ``got``'s logits are from ``want``'s and, where the
+    argmax differs, ``want``'s gap between its top two logits there."""
+    d = (got - want).abs()
+    top2 = want.topk(2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]
+    flips = got.argmax(-1) != want.argmax(-1)
+    n = int(flips.sum())
+    at = (f"{float(gap[flips].min()):.4g}..{float(gap[flips].max()):.4g}"
+          if n else "none")
+    log(f"logits {what}: max abs {float(d.max()):.4g}, mean abs "
+        f"{float(d.mean()):.4g} (std {float(want.std()):.4g}); argmax "
+        f"differs at {n} of {flips.numel()} positions, top-two gap there "
+        f"{at} (median over all {float(gap.median()):.4g})")
+
+
+def compare_routes(torch, model, params, prompts, logits,
+                   n_sites: int) -> None:
+    """The prefill's logits (attention through K4) against two other
+    routes on the same weights and prompts, K5 in all three: the plain
+    route, where every attention site runs ``flash_attention_plain``
+    (f32 softmax and P.V) and K4 is held against it on that site's own
+    q, k, v at phase 1's bf16 tolerance; and the dense route
+    (``layers._sdpa_full``, P rounded to bf16 before P.V)."""
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.launch import serve_lm
+    from repro_torch.models.lm import layers
+
+    kernel_op, sites = layers.flash_attention, []
+
+    def plain_op(q, k, v, *, sm_scale=None, causal=True):
+        scale = q.shape[-1] ** -0.5 if sm_scale is None else sm_scale
+        want = flash_attention_plain(q, k, v, sm_scale=scale, causal=causal,
+                                     kv_len=k.shape[2])
+        got = kernel_op(q, k, v, sm_scale=sm_scale, causal=causal)
+        d = (got.float() - want.float()).abs()
+        # allclose(atol=rtol=1.6e-2) holds where this share is at most 1
+        share = d / (1.6e-2 + 1.6e-2 * want.float().abs())
+        sites.append((float(d.max()), float(share.max())))
+        return want
+
+    layers.flash_attention = plain_op
+    try:
+        plain = model.forward(params, prompts,
+                              ctx_extra=serve_lm.PREFILL_CTX)
+    finally:
+        layers.flash_attention = kernel_op
+    dense = model.forward(params, prompts,
+                          ctx_extra={"use_flash": False, "use_kernel": True})
+    for name, t in (("plain-route", plain), ("dense-route", dense)):
+        _finite(torch, f"{name} logits", t)
+    log(f"K4 vs plain at the {len(sites)} attention sites of the bf16 "
+        f"prefill, on each site's own q, k, v, max abs (share of the "
+        f"tolerance): " + ", ".join(f"{e:.3g} ({r:.3g})" for e, r in sites))
+    if len(sites) != n_sites or max(r for _, r in sites) > 1:
+        fail("K4 differs from the plain version at an attention site of "
+             "the prefill (atol/rtol 1.6e-2)")
+    logit_gap(torch, "K4 route vs plain route", logits, plain)
+    logit_gap(torch, "dense route vs plain route", dense, plain)
+    logit_gap(torch, "K4 route vs dense route", logits, dense)
+    log("first greedy tokens, K4 / plain / dense route: " + " / ".join(
+        str(t[:, -1].argmax(-1).tolist()) for t in (logits, plain, dense)))
+
+
 def phase_lm_serving(torch, profile=False):
     from repro_torch import kernels
     from repro_torch.configs import get_config
@@ -601,13 +698,17 @@ def phase_lm_serving(torch, profile=False):
             ((gen >= 0) & (gen < cfg.vocab)).all()):
         fail(f"generated tokens {tuple(gen.shape)} outside [0, {cfg.vocab})")
     peak = torch.cuda.max_memory_allocated()
+    compare_routes(torch, model, params, prompts, logits,
+                   want["flash_attention_padded"])
 
     steps = []
     for _ in range(3):
         t0 = time.perf_counter()
-        serve_lm.prefill(model, params, prompts, max_len)
+        _, again, _ = serve_lm.prefill(model, params, prompts, max_len)
         torch.cuda.synchronize()
         steps.append((time.perf_counter() - t0) * 1e3)
+    log(f"prefill logits bit-equal to the first prefill's: "
+        f"{torch.equal(again, logits)}")
     tps = LM_BATCH * (LM_TOKENS - 1) / t_dec
     log(f"zamba2-2.7b batch {LM_BATCH} prompt {LM_PROMPT}: prefill "
         f"{statistics.median(steps):.2f} ms (median of 3 after the first); "
@@ -726,9 +827,10 @@ def main() -> None:
             "name": name, "route": "cuda", "source": meta[name][0],
             "replaces": meta[name][1], "launches": launches[name],
             "max_abs_err": max(s["max_abs_err"] for s in shapes),
-            "ms": first["ms"], "plain_ms": first["plain_ms"],
-            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
-            "library_ms": first["library_ms"], "shapes": shapes,
+            **{k: first[k] for k in (
+                "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "library_device_ms")},
+            "shapes": shapes,
         })
         if name in sass:
             out[-1]["sass"] = sass[name]

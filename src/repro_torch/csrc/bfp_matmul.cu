@@ -343,10 +343,15 @@ int launch(const int16_t* ma, const int* ea, const int16_t* mb, const int* eb,
   const int KB = (K + block_size - 1) / block_size;
   const size_t smem = smem_bytes(TM, TN, KB);
   if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      bfp_matmul_kernel<TM, TN, WM, S>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  static size_t configured = 0;     // the largest size set so far
+  cudaError_t err;
+  if (smem > configured) {
+    err = cudaFuncSetAttribute(bfp_matmul_kernel<TM, TN, WM, S>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    configured = smem;
+  }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((M + TM - 1) / TM, (N + TN - 1) / TN, S);
   cfg.blockDim = dim3(THREADS);

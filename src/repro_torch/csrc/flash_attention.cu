@@ -30,10 +30,10 @@
 //   (K-major) and f32 accumulators in registers; the online softmax runs
 //   on those registers (row max and sum by quad shuffles, m and l per row
 //   in registers), in the exp2 domain; S and P never touch shared memory;
-// - P is rounded to bf16 in registers, where its accumulator layout is
-//   exactly the register-A fragment of O += P V (`wgmma` m64nNk16, V the
-//   MN-major B operand in shared memory); O is rescaled by alpha in
-//   registers;
+// - P stays in registers, where its accumulator layout is exactly the
+//   register-A fragment of O += P V (`wgmma` m64nNk16, V the MN-major B
+//   operand in shared memory), as two bf16 terms (below); O is rescaled
+//   by alpha in registers;
 // - the head dim is loaded as one or two 64-column TMA boxes (DH halves);
 //   the hardware zero-fills columns D..64*DH-1 and KV rows past Lkv, and
 //   Q K^T runs its k16 steps only up to D rounded up to 16.  Any D that is
@@ -47,14 +47,20 @@
 //   limit and at kv_len; rows past Lq are not stored;
 // - the grid is (Hq, B, query blocks) with the query-block index reversed,
 //   so the blocks with the longest causal sweep start first.
-// Rounding: P enters P V in bf16 (relative error 2^-9 per weight), as the
-// TPU kernel's default-precision `jnp.dot` feeds its MXU bf16 inputs; the
-// softmax sums stay f32.  The error this adds to an output row is a
-// weighted mean of 2^-9-sized errors, well under one bf16 ulp of the
-// output at |o| near 1, so the result stays inside the 1.6e-2 (two bf16
-// ulps) tolerance against the plain f32-softmax version.
+// Rounding: P enters P V as hi = bf16(p) plus lo = bf16(p - hi), two
+// wgmma steps per k16 slice against the same V tile, so P carries 16
+// significant bits (relative error 2^-17) where one bf16 term carries 8
+// (2^-9); the softmax sums stay f32.  One term is not enough: the TPU
+// kernel's default-precision `jnp.dot` feeds its MXU bf16 P, but in the
+// Zamba2 prefill |v| reaches ~50 and the softmax is nearly one-hot, so a
+// 2^-9 error on a weight near 1/2 moves an output near 0 by 0.02-0.03,
+// beyond the 1.6e-2 (atol and rtol) tolerance against the plain
+// f32-softmax version at every one of the 9 attention sites.  With the
+// lo term the error is the output's own bf16 rounding.  The second term
+// doubles the P V steps; on an H100 it costs about 15% of the kernel's
+// time at the Zamba2 shape (PERF.md).
 //
-// f32, `flash_kernel<float>`: the plain CUDA-core kernel, picked by dtype
+// f32, `flash_kernel`: the plain CUDA-core kernel, picked by dtype
 // (TF32 would change the f32 results the f32 LM route is held to).  One
 // 256-thread block per (64-row query block, query head, batch); the query
 // tile and one 64-row K and V tile at a time sit in shared memory; each
@@ -372,13 +378,18 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       o[4 * j + 3] *= alpha[1];
     }
 
-    // P (bf16) as the register-A fragments of the four k16 steps of P V
-    uint32_t pa[16];
+    // P as two bf16 terms, hi = bf16(p) and lo = bf16(p - hi), in the
+    // register-A fragments of the four k16 steps of P V
+    uint32_t pa[16], pl[16];
 #pragma unroll
     for (int k = 0; k < 4; ++k)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        pa[4 * k + i] = pack_bf16(sc[8 * k + 2 * i], sc[8 * k + 2 * i + 1]);
+      for (int i = 0; i < 4; ++i) {
+        const float x = sc[8 * k + 2 * i], y = sc[8 * k + 2 * i + 1];
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(x, y);
+        pa[4 * k + i] = *reinterpret_cast<const uint32_t*>(&hi);
+        pl[4 * k + i] = pack_bf16(x - __low2float(hi), y - __high2float(hi));
+      }
 
     reg_fence<NO>(o);
     wgmma_fence();
@@ -386,10 +397,13 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     for (int k = 0; k < 4; ++k) {
       // 16 KV rows of V: two 8-row groups of 128 B per 64-column atom
       const uint64_t dv = smem_desc(v_addr + k * 2048, HALF_BYTES);
-      if constexpr (DH == 1)
+      if constexpr (DH == 1) {
         wgmma_m64n64k16_rs(o, pa + 4 * k, dv);
-      else
+        wgmma_m64n64k16_rs(o, pl + 4 * k, dv);
+      } else {
         wgmma_m64n128k16_rs(o, pa + 4 * k, dv);
+        wgmma_m64n128k16_rs(o, pl + 4 * k, dv);
+      }
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -470,11 +484,15 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out, int B,
   if (!make_map(&tq, q, D, Lq, B * Hq) || !make_map(&tk, k, D, Lkv, B * Hkv) ||
       !make_map(&tv, v, D, Lkv, B * Hkv))
     return (int)cudaErrorInvalidValue;
-  const int smem = wg_smem_bytes(DH);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_wgmma_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return (int)err;
+  constexpr int smem = wg_smem_bytes(DH);
+  static bool configured = false;   // the attribute is set once per instance
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_wgmma_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
   dim3 grid(Hq, B, (Lq + BM - 1) / BM);
   flash_wgmma_kernel<DH><<<grid, WG_THREADS, smem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(out), Hq, Hkv, Lq, Lkv, D,
@@ -493,11 +511,11 @@ __host__ __device__ inline size_t smem_floats(int D) {
          (size_t)BM * (BN + 1) + 3 * BM;
 }
 
-template <typename T>
 __global__ void __launch_bounds__(THREADS)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ out, int Hq, int Hkv,
-             int Lq, int Lkv, int D, int kv_len, float scale, int causal) {
+flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, float* __restrict__ out, int Hq,
+             int Hkv, int Lq, int Lkv, int D, int kv_len, float scale,
+             int causal) {
   extern __shared__ float smem[];
   const int ldq = D + 1;
   float* qs = smem;
@@ -513,10 +531,10 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
-  const T* qg = q + ((size_t)b * Hq + h) * Lq * D;
-  const T* kg = k + ((size_t)b * Hkv + hk) * Lkv * D;
-  const T* vg = v + ((size_t)b * Hkv + hk) * Lkv * D;
-  T* og = out + ((size_t)b * Hq + h) * Lq * D;
+  const float* qg = q + ((size_t)b * Hq + h) * Lq * D;
+  const float* kg = k + ((size_t)b * Hkv + hk) * Lkv * D;
+  const float* vg = v + ((size_t)b * Hkv + hk) * Lkv * D;
+  float* og = out + ((size_t)b * Hq + h) * Lq * D;
 
   for (int i = tid; i < BM * D; i += THREADS) {
     const int r = i / D, d = i % D;
@@ -649,17 +667,19 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
                int Hq, int Hkv, int Lq, int Lkv, int D, int kv_len,
                float scale, int causal, cudaStream_t stream) {
-  using T = float;
-  const size_t smem = smem_floats(D) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  const int smem = (int)(smem_floats(D) * sizeof(float));
+  static int configured = 0;        // the largest size set so far
+  if (smem > configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    configured = smem;
+  }
   dim3 grid((Lq + BM - 1) / BM, Hq, B);
-  flash_kernel<T><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Hq, Hkv, Lq, Lkv, D,
-      kv_len, scale, causal);
+  flash_kernel<<<grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), Hq, Hkv, Lq,
+      Lkv, D, kv_len, scale, causal);
   return (int)cudaGetLastError();
 }
 
@@ -684,10 +704,4 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                            scale, causal, stream);
   }
   return (int)cudaErrorInvalidValue;
-}
-
-// shared-memory bytes of one bf16 block at head dim D (the wrapper's
-// geometry helper is held against this on the card)
-extern "C" int flash_wgmma_smem_bytes(int D) {
-  return wg_smem_bytes(D <= 64 ? 1 : 2);
 }

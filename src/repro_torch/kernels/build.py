@@ -45,8 +45,6 @@ SIGNATURES = {
     # q, k, v, out, B, Hq, Hkv, Lq, Lkv, D, kv_len, scale, causal, dtype,
     # stream
     "flash_attention_fwd": (_P,) * 4 + (_I,) * 7 + (_F, _I, _I, _P),
-    # D -> shared-memory bytes of one bf16 block
-    "flash_wgmma_smem_bytes": (_I,),
     # c, b, xdt, scum, y, st, BC, G, HPG, Lc, N, P, stream
     "ssd_chunk_f32": (_P,) * 6 + (_I,) * 6 + (_P,),
 }
