@@ -8,15 +8,19 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` (into
 before the result line is printed.
 
 1. Kernels against their plain torch versions at the main paths' shapes.
-   K1-K3 at VGG-16 PixelLink's (512x512, batch 2), the plain version on
-   CPU copies of the same inputs, at the CPU tests' tolerances (K1
-   atol/rtol 2e-3, K2 1e-4, K3 labels exact); K2 at each of the seven
-   1x1-conv matmuls the engine's program sends it (read from
-   ``FCNEngine.k2_shapes``).  K4 at Zamba2-2.7B's prefill (B 4, H 32,
+   K1 at each distinct shape of the 17 3x3 convs the engine's program
+   sends it (read from ``FCNEngine.k1_shapes``; 512x512, batch 2,
+   conv1_2 first), K2 at each of the seven 1x1-conv matmuls (read from
+   ``FCNEngine.k2_shapes``), K3 at (2, 128, 128).  K1's plain version
+   runs on CPU copies of the inputs at conv1_1 (Cin 3), conv1_2 and
+   conv5_1 and on the card tensors elsewhere, K2's and K3's on CPU
+   copies, at the CPU tests' tolerances (K1 atol/rtol 2e-3, K2 1e-4, K3
+   labels exact).  K4 at Zamba2-2.7B's prefill (B 4, H 32,
    L 512, D 80, causal) in bf16 and f32, at TinyLlama's GQA heads with a
    ragged length (1, Hq 32, Hkv 4, L 1000, D 64) and at Mistral-NeMo's
    (1, Hq 32, Hkv 8, L 1024, D 128) in bf16; K5 at Zamba2's prefill
-   (BC 16, G 1, HPG 80, Lc 128, N 64, P 64); both against the plain
+   (BC 16, G 1, HPG 80, Lc 128, N 64, P 64) on the strided views
+   ``ssd_scan`` hands it; both against the plain
    version on the same card tensors (K4 atol/rtol 2e-3 in f32, 1.6e-2 in
    bf16, two bf16 ulps; K5 3e-3).
    Times are CUDA-event medians of 20 calls after 3 warm-up calls, each
@@ -27,12 +31,15 @@ before the result line is printed.
    yardstick the port never calls: ``F.conv2d``, ``torch.matmul``,
    ``F.scaled_dot_product_attention``).  The kernel and the library call
    are timed again with all 20 calls queued while the card sleeps, which
-   leaves device time only (``device_ms``, ``library_device_ms``).  The
-   bound counts K2's operations at the TF32 tensor-core peak (its
-   operands are exact in TF32) and K4's bf16 at the bf16 peak.  Before phase 1,
+   leaves device time only (``device_ms``, ``library_device_ms``).  K1's
+   times are also summed over the 17 launches of a forward pass.  The
+   bound counts the operations of K1, K2 and K5 at the TF32 tensor-core
+   peak (K1 and K5 three times: they split each operand into two TF32
+   terms; K2's operands are exact in TF32) and K4's bf16 at the bf16
+   peak.  Before phase 1,
    ``cuobjdump -sass`` of the built library must show tensor-core
    instructions (HGMMA) in the bf16 flash kernel and (HMMA) in every
-   bfp_matmul instantiation; the counts are printed.
+   instance of K1, K2 and K5; the counts are printed.
 2. The published configuration (``configs/pixellink_std.VGG16``: width
    1.0, 512x512, merge (128, 64, 32), optimized, BFP, FP16 storage) with
    seeded random weights through ``EngineFactory``'s single-device engine
@@ -71,8 +78,8 @@ The last lines are a ``{"kernels": [...]}`` JSON line, the card's name
 and power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --profile`` also runs torch.profiler over ten
-calls of K2 (merge1_c1, head_logits), of K4 (bf16 shapes) and of their
-library calls in phase 1, over one engine step of phase 2 and over one
+calls of K1 (conv1_2, conv5_1), K2 (merge1_c1, head_logits), K4 (bf16
+shapes), K5 and their library calls in phase 1, over one engine step of phase 2 and over one
 prefill and one decode step of phase 4, and prints the device time by
 kernel and the device's busy share of each.
 """
@@ -100,7 +107,7 @@ LM_BATCH, LM_PROMPT, LM_TOKENS = 4, 512, 32
 FCN_KERNELS = ("winograd_tiles", "bfp_matmul_quantized",
                "local_spread_converge")
 LM_KERNELS = ("flash_attention_padded", "ssd_chunk")
-PORT_KERNELS = ("winograd_tile_kernel", "bfp_matmul_kernel",
+PORT_KERNELS = ("winograd_fused_kernel", "bfp_matmul_kernel",
                 "cc_local_kernel", "flash_kernel", "flash_wgmma_kernel",
                 "ssd_chunk_kernel")     # names of the kernels in csrc/
 
@@ -196,14 +203,17 @@ def sass_tensor_ops(library) -> dict:
 
 
 def check_tensor_cores(library) -> dict:
-    """The bf16 flash kernel must issue HGMMA and every bfp_matmul
-    instantiation HMMA; returns their counts by kernel."""
+    """The bf16 flash kernel must issue HGMMA, and every instance of K1,
+    K2 and K5 HMMA; returns their counts by kernel."""
     counts = sass_tensor_ops(library)
     found = {}
-    for kernel, key, op in (("flash_attention_padded", "flash_wgmma_kernel",
+    for kernel, key, op in (("winograd_tiles", "winograd_fused_kernel",
+                             "HMMA"),
+                            ("flash_attention_padded", "flash_wgmma_kernel",
                              "HGMMA"),
                             ("bfp_matmul_quantized", "bfp_matmul_kernel",
-                             "HMMA")):
+                             "HMMA"),
+                            ("ssd_chunk", "ssd_chunk_kernel", "HMMA")):
         names = [n for n in counts if key in n]
         if not names:
             fail(f"no {key} in the SASS of {library}")
@@ -250,41 +260,72 @@ def phase_kernels(torch, np, profile=False):
     gen = torch.Generator().manual_seed(0)
     rows = {}
 
-    # K1 at conv1_2 (512x512, 64 -> 64) and conv5_1 (32x32, 512 -> 512)
-    shapes = []
-    for name, hw, cin, cout in (("conv1_2", 512, 64, 64),
-                                ("conv5_1", 32, 512, 512)):
-        x = torch.randn((BATCH, hw, hw, cin), generator=gen).to(dev)
+    # K1 at every distinct 3x3 conv of the program (conv1_2 first: it
+    # leads the kernel's row); the plain version on CPU copies at conv1_1
+    # (Cin 3), conv1_2 and conv5_1, on the card tensors elsewhere
+    engine = DetectionModel(dataclasses.replace(VGG16, image_size=HW),
+                            build_head("pixellink"), "cuda").engine
+    k1 = engine.k1_shapes(BATCH)
+    if len(k1) != 17:
+        fail(f"expected the 17 3x3 convs of VGG-16 PixelLink, got {k1}")
+    distinct = {}
+    for name, n, hh, ww, cin, cout in k1:
+        distinct.setdefault((n, hh, ww, cin, cout), []).append(name)
+    order = sorted(distinct, key=lambda k: "conv1_2" not in distinct[k])
+    shapes, by_shape = [], {}
+    for key in order:
+        n, hh, ww, cin, cout = key
+        names = distinct[key]
+        x = torch.randn((n, hh, ww, cin), generator=gen).to(dev)
         w = (torch.randn((3, 3, cin, cout), generator=gen)
              * (2.0 / (9 * cin)) ** 0.5).to(dev)
         b = torch.randn((cout,), generator=gen).to(dev)
-        v, (oh, ow, th, tw) = wg.input_tiles(x)
         u = wg.transform_weights(w).reshape(36, cin, cout).contiguous()
-        geo = dict(relu=True, n=BATCH, th=th, tw=tw, out_h=oh, out_w=ow)
-        got = winograd_tiles(v, u, b, **geo)
+        geo = dict(padding="SAME", relu=True)
+        got = winograd_tiles(x, u, b, **geo)
         torch.cuda.synchronize()
-        want = winograd_tiles_plain(v.cpu(), u.cpu(), b.cpu(), **geo)
+        on_cpu = bool({"conv1_1", "conv1_2", "conv5_1"} & set(names))
+        want = (winograd_tiles_plain(x.cpu(), u.cpu(), b.cpu(), **geo)
+                if on_cpu else winograd_tiles_plain(x, u, b, **geo).cpu())
         err = float((got.cpu() - want).abs().max())
         if not torch.allclose(got.cpu(), want, atol=2e-3, rtol=2e-3):
-            fail(f"K1 {name}: kernel differs from plain (max abs {err})")
+            fail(f"K1 {names}: kernel differs from plain (max abs {err})")
         x_nchw = x.permute(0, 3, 1, 2).contiguous()
         w_oihw = w.permute(3, 2, 0, 1).contiguous()
-        t = time_row(torch, lambda: winograd_tiles(v, u, b, **geo),
-                     lambda: winograd_tiles_plain(v, u, b, **geo),
+        t = time_row(torch, lambda: winograd_tiles(x, u, b, **geo),
+                     lambda: winograd_tiles_plain(x, u, b, **geo),
                      lambda: F.conv2d(x_nchw, w_oihw, b, padding=1))
-        flops = 2.0 * v.shape[0] * 36 * cin * cout
-        bms, by = bound(nbytes(v, u, b, got), flops)
-        shapes.append(dict(shape=f"{name} x{tuple(x.shape)} w{tuple(w.shape)}",
-                           max_abs_err=err, **t, bound_ms=bms, bound_by=by))
-        log(f"K1 {name}: P={v.shape[0]} max_abs_err={err:.3g} "
+        # the 36 products per tile, three TF32 products each (3xTF32);
+        # bytes: x, U and b read once, y written once
+        tiles = n * -(-hh // 4) * -(-ww // 4)
+        bms, by = bound(nbytes(x, u, b, got),
+                        3 * 2.0 * tiles * 36 * cin * cout, TF32_PEAK)
+        by_shape[key] = t
+        shapes.append(dict(
+            shape=f"{'/'.join(names)} x{tuple(x.shape)} w{tuple(w.shape)}",
+            launches_per_forward=len(names), max_abs_err=err,
+            checked_on="cpu" if on_cpu else "card", **t, bound_ms=bms,
+            bound_by=by))
+        log(f"K1 {'/'.join(names)} {tuple(x.shape)} -> {cout}: "
+            f"max_abs_err={err:.3g} ({'CPU' if on_cpu else 'card'} plain) "
             f"{fmt_times(t, 'conv2d')} bound {bms:.4f} ms ({by})")
-        del x, v, got, want
+        if profile and names[0] in ("conv1_2", "conv5_1"):
+            profile_calls(torch, [
+                (f"K1 {names[0]}", lambda: winograd_tiles(x, u, b, **geo)),
+                (f"F.conv2d {names[0]}",
+                 lambda: F.conv2d(x_nchw, w_oihw, b, padding=1))])
+        del x, u, got, want, x_nchw, w_oihw
+    total = {k: sum(by_shape[word[1:]][k] for word in k1)
+             for k in ("ms", "device_ms", "library_ms", "library_device_ms")}
+    log(f"K1 summed over the 17 launches of a forward pass: kernel "
+        f"{total['ms']:.4f} ms (device {total['device_ms']:.4f}), conv2d "
+        f"{total['library_ms']:.4f} ms (device "
+        f"{total['library_device_ms']:.4f})")
+    shapes[0]["sum_over_forward"] = total
     rows["winograd_tiles"] = shapes
 
     # K2 at every 1x1 conv of the program (merge1_c1, K = 128 + 512
     # concatenated, first: it leads the kernel's row)
-    engine = DetectionModel(dataclasses.replace(VGG16, image_size=HW),
-                            build_head("pixellink"), "cuda").engine
     k2 = sorted(engine.k2_shapes(BATCH), key=lambda s: s[0] != "merge1_c1")
     if len(k2) != 7:
         fail(f"expected the 7 1x1 convs of VGG-16 PixelLink, got {k2}")
@@ -400,12 +441,19 @@ def phase_lm_kernels(torch, profile=False):
         del q, k, v, got, want
     rows["flash_attention_padded"] = shapes
 
-    BC, G, HPG, Lc, N, P = LM_BATCH * LM_PROMPT // 128, 1, 80, 128, 64, 64
-    c = torch.randn((BC, G, Lc, N), generator=gen, device=dev) * 0.5
-    b = torch.randn((BC, G, Lc, N), generator=gen, device=dev) * 0.5
-    xdt = torch.randn((BC, G, HPG, Lc, P), generator=gen, device=dev) * 0.5
-    la = -torch.rand((BC, G, HPG, Lc, 1), generator=gen, device=dev)
-    scum = torch.cumsum(la, dim=3)
+    # K5 at Zamba2's prefill, on the views ssd_scan hands it
+    # (kernels/ssd_scan/ops.py): operands in (B, nc, Lc, H | G, ...) memory
+    Bz, nc, G, H, Lc, N, P = LM_BATCH, LM_PROMPT // 128, 1, 80, 128, 64, 64
+    BC, HPG = Bz * nc, H // G
+    cm = torch.randn((Bz, nc, Lc, G, N), generator=gen, device=dev) * 0.5
+    bm = torch.randn((Bz, nc, Lc, G, N), generator=gen, device=dev) * 0.5
+    xm = torch.randn((Bz, nc, Lc, H, P), generator=gen, device=dev) * 0.5
+    la = -torch.rand((Bz, nc, Lc, H), generator=gen, device=dev)
+    c = cm.permute(0, 1, 3, 2, 4).reshape(BC, G, Lc, N)
+    b = bm.permute(0, 1, 3, 2, 4).reshape(BC, G, Lc, N)
+    xdt = xm.permute(0, 1, 3, 2, 4).reshape(BC, G, HPG, Lc, P)
+    scum = torch.cumsum(la, dim=2).permute(0, 1, 3, 2).reshape(
+        BC, G, HPG, Lc, 1)
     y, st = ssd_chunk(c, b, xdt, scum)
     torch.cuda.synchronize()
     wy, wst = ssd_chunk_plain(c, b, xdt, scum)
@@ -417,15 +465,18 @@ def phase_lm_kernels(torch, profile=False):
                  lambda: ssd_chunk_plain(c, b, xdt, scum))
     # cb once per (chunk, group), then y and the chunk-end state per head;
     # cb and W = cb * decay are lower-triangular, so cb and y count the
-    # Lc (Lc + 1) / 2 entries t >= s, at 2 operations each
+    # Lc (Lc + 1) / 2 entries t >= s, at 2 operations each; three TF32
+    # products each (3xTF32)
     flops = 1.0 * BC * G * Lc * (Lc + 1) * N + 1.0 * BC * G * HPG * (
         Lc * (Lc + 1) * P + 2 * P * N * Lc)
-    bms, by = bound(nbytes(c, b, xdt, scum, y, st), flops)
+    bms, by = bound(nbytes(c, b, xdt, scum, y, st), 3 * flops, TF32_PEAK)
     rows["ssd_chunk"] = [dict(
         shape=f"zamba2 prefill BC={BC} G={G} HPG={HPG} Lc={Lc} N={N} P={P}",
         max_abs_err=err, **t, bound_ms=bms, bound_by=by)]
     log(f"K5 ssd_chunk: max_abs_err={err:.3g} {fmt_times(t)} "
         f"bound {bms:.4f} ms ({by})")
+    if profile:
+        profile_calls(torch, [("K5", lambda: ssd_chunk(c, b, xdt, scum))])
     return rows
 
 

@@ -150,6 +150,29 @@ class FCNEngine:
                             batch * h * w, mc.in_ch, mc.out_ch))
         return out
 
+    def _runs_k1(self, mc: Microcode, spec) -> bool:
+        """A stride-1 3x3 conv with the optimized kernels is one K1
+        Winograd launch."""
+        depthwise = bool(spec.table and spec.table.get("depthwise"))
+        return (self.use_kernels and self.mode == "optimized"
+                and not depthwise and mc.kernel_size == 3
+                and mc.stride_n == 1)
+
+    def k1_shapes(self, batch: int):
+        """(binding, N, H, W, Cin, Cout) of each K1 conv one forward pass
+        of a ``batch`` runs, in program order."""
+        prog = self.program
+        out = []
+        for idx, mc in enumerate(prog.words):
+            if (LayerType(mc.layer_type) == LayerType.CONV
+                    and self._runs_k1(mc, prog.layer_specs[idx])
+                    and (self.memplan is None
+                         or idx in self.memplan.schedule)):
+                h, w, _ = prog.addr_shapes[mc.out_addr]
+                out.append((prog.weight_bindings.get(idx, str(idx)), batch,
+                            h, w, mc.in_ch, mc.out_ch))
+        return out
+
     def _conv(self, x, p, mc: Microcode, spec, *, transposed: bool = False,
               relu: bool = False):
         w = p["w"]
@@ -158,7 +181,6 @@ class FCNEngine:
             # transposed-image mode: transpose the weight kernels too
             w = w.transpose(0, 1)
         depthwise = bool(spec.table and spec.table.get("depthwise"))
-        optimized_kernels = self.use_kernels and self.mode == "optimized"
         if self._runs_k2(mc, spec):
             # a 1x1 conv is a matmul: K2 quantizes both operands along the
             # contraction dim (activations along channels, weights along
@@ -183,13 +205,13 @@ class FCNEngine:
         if depthwise:
             y = fuse.conv2d_nhwc(x, w, mc.stride_n, "SAME", groups=mc.in_ch)
             return fuse.conv_epilogue(y, b, relu)
+        if self._runs_k1(mc, spec):
+            from repro_torch.kernels.winograd_conv import winograd_conv2d
+
+            # bias + ReLU fused into K1's output-transform epilogue
+            return winograd_conv2d(x, w, b, relu=relu)
         if self.mode == "optimized" and mc.kernel_size == 3 \
                 and mc.stride_n == 1:
-            if optimized_kernels:
-                from repro_torch.kernels.winograd_conv import winograd_conv2d
-
-                # bias + ReLU fused into K1's output-transform epilogue
-                return winograd_conv2d(x, w, b, relu=relu)
             y = winograd.winograd_conv2d(x, w, padding="SAME")
         else:
             y = fuse.conv2d_nhwc(x, w, mc.stride_n, "SAME")

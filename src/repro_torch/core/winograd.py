@@ -6,8 +6,8 @@ Y = Aᵀ[(G W Gᵀ) ⊙ (Bᵀ X B)] A with 6x6 input tiles and 4x4 output tiles:
 This module holds the Lavin-Gray transform matrices, the tile extraction
 and the plain torch-op convolution built on them (the interpreter's
 optimized mode when no kernel is requested).  ``kernels/winograd_conv``
-runs the 36 per-position contractions and the output transform as a
-CUDA kernel on the same transformed operands.
+runs the input transform, the 36 per-position contractions and the output
+transform as one CUDA kernel on the input plane and U.
 """
 from __future__ import annotations
 

@@ -55,10 +55,14 @@
 // What still holds it back: a block's K steps run load, dequantize and
 // MMA one after another on four warps, and each element of B is
 // dequantized again by every tile row (32 times at merge1_c1).
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "tf32x3.cuh"
 
 namespace {
+
+using tf32x3::cp_async16;
+using tf32x3::cp_async_commit;
+using tf32x3::mma;
+using tf32x3::smem_u32;
 
 constexpr int TK = 32;          // K per step: four k8 MMA steps
 constexpr int STAGES = 2;       // mantissa tiles: double-buffered
@@ -71,19 +75,6 @@ __device__ __forceinline__ float exp2i(int e) {
   return __int_as_float((e + 127) << 23);
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes, of which the first `src_bytes` are read and the rest zeroed
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
 // all but the newest STAGES - 1 groups have landed
 __device__ __forceinline__ void cp_async_wait_stage() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(STAGES - 1) : "memory");
@@ -106,16 +97,6 @@ __device__ __forceinline__ float ld_cluster(const float* p, int rank) {
   asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
                : "=f"(v) : "r"(remote) : "memory");
   return v;
-}
-
-// d += a * b, m16n8k8, TF32 in, f32 accumulators
-__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // raw A [STAGES][TM][TK] and B [STAGES][TK][TN] int16, f32 A [TM][LDF]
@@ -284,7 +265,7 @@ bfp_matmul_kernel(const int16_t* __restrict__ ma, const int* __restrict__ ea,
 #pragma unroll
       for (int i = 0; i < MI; ++i)
 #pragma unroll
-        for (int j = 0; j < NI; ++j) mma_tf32(acc[i][j], a[i], b[j]);
+        for (int j = 0; j < NI; ++j) mma(acc[i][j], a[i], b[j]);
     }
   }
 

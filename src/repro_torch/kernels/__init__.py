@@ -3,8 +3,8 @@
 Each package holds one kernel's wrapper beside a plain torch version of
 the same function:
 
-  winograd_conv/    K1, Winograd F(4x4, 3x3) tile contraction with the
-                    output transform, bias and ReLU fused
+  winograd_conv/    K1, Winograd F(4x4, 3x3) conv: input transform,
+                    tile products, output transform, bias and ReLU fused
   bfp_matmul/       K2, block floating-point matmul, f32 accumulation
   cc_label/         K3, tile-local connected-component spread
   flash_attention/  K4, blockwise online-softmax attention (LM prefill)

@@ -27,6 +27,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("winograd_conv.cu", "bfp_matmul.cu", "cc_label.cu",
            "flash_attention.cu", "ssd_chunk.cu")
+HEADERS = ("tf32x3.cuh",)
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -35,8 +36,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 SIGNATURES = {
-    # v, u, bias, out, n, th, tw, cin, cout, out_h, out_w, relu, stream
-    "winograd_tile_conv": (_P, _P, _P, _P) + (_I,) * 8 + (_P,),
+    # x, u, bias, out, n, h, w, cin, cout, pad, out_h, out_w, relu, stream
+    "winograd_conv_fused": (_P,) * 4 + (_I,) * 9 + (_P,),
     # ma, ea, mb, eb, out, M, N, K, block_size, mantissa_bits, tile_m,
     # tile_n, splits, stream
     "bfp_matmul_f32": (_P,) * 5 + (_I,) * 8 + (_P,),
@@ -45,8 +46,9 @@ SIGNATURES = {
     # q, k, v, out, B, Hq, Hkv, Lq, Lkv, D, kv_len, scale, causal, dtype,
     # stream
     "flash_attention_fwd": (_P,) * 4 + (_I,) * 7 + (_F, _I, _I, _P),
-    # c, b, xdt, scum, y, st, BC, G, HPG, Lc, N, P, stream
-    "ssd_chunk_f32": (_P,) * 6 + (_I,) * 6 + (_P,),
+    # c, b, xdt, scum, y, st, strides (18 int64), BC, G, HPG, Lc, N, P,
+    # stream
+    "ssd_chunk_f32": (_P,) * 7 + (_I,) * 6 + (_P,),
 }
 
 _lock = threading.Lock()
@@ -62,7 +64,7 @@ def _nvcc() -> str:
 
 def source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]

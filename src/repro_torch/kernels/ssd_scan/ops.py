@@ -11,18 +11,13 @@ step, torch ops as in the reference.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.kernels import build
 
 F32 = torch.float32
-_SMEM_LIMIT = 232448      # shared memory one block may use on an H100
-
-
-def _smem_bytes(Lc: int, N: int, P: int) -> int:
-    """The kernel's shared memory: cb, C-then-W, B (padded), xdt, scum
-    and the chunk-end decays, all f32 (``smem_floats`` in the source)."""
-    return 4 * (Lc * Lc + Lc * max(Lc, N) + Lc * (N + 1) + Lc * P + 2 * Lc)
 
 
 def ssd_chunk_plain(c, b, xdt, scum):
@@ -43,7 +38,11 @@ def ssd_chunk_plain(c, b, xdt, scum):
 
 def ssd_chunk(c: torch.Tensor, b: torch.Tensor, xdt: torch.Tensor,
               scum: torch.Tensor):
-    """The intra-chunk block (see :func:`ssd_chunk_plain`)."""
+    """The intra-chunk block (see :func:`ssd_chunk_plain`).  On the card
+    the operands may be strided views whose innermost stride is 1 (scum's
+    innermost dim has size 1); y comes back as a ``(BC, G, HPG, Lc, P)``
+    view of memory laid out ``(BC, Lc, G, HPG, P)``, the order the
+    caller's ``(B, nc, Lc, H, P)`` sum reads."""
     BC, G, Lc, N = c.shape
     if (xdt.dim() != 5 or tuple(b.shape) != (BC, G, Lc, N)
             or tuple(xdt.shape[:2]) != (BC, G) or xdt.shape[3] != Lc
@@ -57,19 +56,23 @@ def ssd_chunk(c: torch.Tensor, b: torch.Tensor, xdt: torch.Tensor,
     if c.device.type != "cuda":
         raise ValueError(f"ssd_chunk: unsupported device {c.device}")
     for t in (c, b, xdt, scum):
-        if t.device != c.device or t.dtype != F32 or not t.is_contiguous():
-            raise ValueError("ssd_chunk takes contiguous f32 tensors on one "
-                             "device")
-    if max(Lc, N, P) > 128 or _smem_bytes(Lc, N, P) > _SMEM_LIMIT:
-        raise ValueError(f"ssd_chunk kernel takes chunk, state and head "
-                         f"dims <= 128 within {_SMEM_LIMIT} bytes of "
-                         f"shared memory, got Lc={Lc} N={N} P={P}")
-    y = torch.empty((BC, G, HPG, Lc, P), device=c.device, dtype=F32)
+        if t.device != c.device or t.dtype != F32:
+            raise ValueError("ssd_chunk takes f32 tensors on one device")
+    if c.stride(-1) != 1 or b.stride(-1) != 1 or xdt.stride(-1) != 1:
+        raise ValueError("ssd_chunk takes views whose innermost stride is 1")
+    if Lc > 128 or N > 128 or P > 64:
+        raise ValueError(f"ssd_chunk kernel takes Lc <= 128, N <= 128 and "
+                         f"P <= 64, got Lc={Lc} N={N} P={P}")
+    y = torch.empty((BC, Lc, G, HPG, P), device=c.device,
+                    dtype=F32).permute(0, 2, 3, 1, 4)
     st = torch.empty((BC, G, HPG, P, N), device=c.device, dtype=F32)
+    strides = (ctypes.c_longlong * 18)(
+        *c.stride()[:3], *b.stride()[:3], *xdt.stride()[:4],
+        *scum.stride()[:4], *y.stride()[:4])
     lib = build.library()
     build.check(lib.ssd_chunk_f32(
         c.data_ptr(), b.data_ptr(), xdt.data_ptr(), scum.data_ptr(),
-        y.data_ptr(), st.data_ptr(), BC, G, HPG, Lc, N, P,
+        y.data_ptr(), st.data_ptr(), strides, BC, G, HPG, Lc, N, P,
         build.stream_handle(c.device)), "ssd_chunk_f32")
     ssd_chunk.launches += 1
     return y, st
@@ -137,14 +140,12 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     G, N = Bc.shape[3], Bc.shape[4]
     hpg = H // G
 
-    # kernel layout: (BC, G, [HPG,] ...)
+    # kernel layout (BC, G, [HPG,] ...): views, no copies
     BC = Bsz * nc
-    c_k = Cc.permute(0, 1, 3, 2, 4).reshape(BC, G, Lc, N).contiguous()
-    b_k = Bc.permute(0, 1, 3, 2, 4).reshape(BC, G, Lc, N).contiguous()
-    xdt_k = xdt.permute(0, 1, 3, 2, 4).reshape(BC, G, hpg, Lc, P) \
-        .contiguous()
-    scum_k = scum.permute(0, 1, 3, 2).reshape(BC, G, hpg, Lc, 1) \
-        .contiguous()
+    c_k = Cc.permute(0, 1, 3, 2, 4).reshape(BC, G, Lc, N)
+    b_k = Bc.permute(0, 1, 3, 2, 4).reshape(BC, G, Lc, N)
+    xdt_k = xdt.permute(0, 1, 3, 2, 4).reshape(BC, G, hpg, Lc, P)
+    scum_k = scum.permute(0, 1, 3, 2).reshape(BC, G, hpg, Lc, 1)
     y_intra, st = ssd_chunk(c_k, b_k, xdt_k, scum_k)
     y_intra = y_intra.reshape(Bsz, nc, H, Lc, P).permute(0, 1, 3, 2, 4)
     st = st.reshape(Bsz, nc, H, P, N)                  # chunk-local end state

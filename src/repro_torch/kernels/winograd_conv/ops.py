@@ -1,12 +1,13 @@
 """K1 wrapper: Winograd F(4x4, 3x3) conv with bias + ReLU fused.
 
-Tile extraction and the input transform BᵀXB stay in torch ops (as the
-reference leaves them to XLA); :func:`winograd_tiles` then contracts the
-transformed tiles V ``(P, 36, Cin)`` with the transformed weights U
-``(36, Cin, Cout)``, applies AᵀMA, bias and ReLU, and writes the cropped
-NHWC plane.  On a CUDA tensor it launches the kernel in
-``csrc/winograd_conv.cu``; on a CPU tensor it runs
-:func:`winograd_tiles_plain`, the same function in torch ops.
+:func:`winograd_tiles` takes the NHWC input plane and the transformed
+weights U = G W Gᵀ ``(36, Cin, Cout)`` and returns the cropped NHWC
+output.  On a CUDA tensor it launches the kernel in
+``csrc/winograd_conv.cu``, which forms the transformed input tiles BᵀXB
+in shared memory, contracts them with U, and applies AᵀMA, bias and
+ReLU; on a CPU tensor it runs :func:`winograd_tiles_plain`, the same
+function in torch ops.  U stays a torch op in :func:`winograd_conv2d`,
+as the reference leaves it to XLA.
 """
 from __future__ import annotations
 
@@ -17,10 +18,14 @@ import torch
 from repro_torch.core import winograd as wg
 from repro_torch.kernels import build
 
+PADS = {"SAME": 1, "VALID": 0}
 
-def winograd_tiles_plain(v, u, b, *, relu: bool, n: int, th: int, tw: int,
-                         out_h: int, out_w: int) -> torch.Tensor:
+
+def winograd_tiles_plain(x, u, b, *, padding: str, relu: bool
+                         ) -> torch.Tensor:
     """Plain torch version of the kernel, on the same operands."""
+    n = x.shape[0]
+    v, (out_h, out_w, th, tw) = wg.input_tiles(x, padding)
     y = wg.tile_products(v, u)                         # (4, 4, P, Cout)
     if b is not None:
         y = y + b
@@ -29,37 +34,37 @@ def winograd_tiles_plain(v, u, b, *, relu: bool, n: int, th: int, tw: int,
     return wg.tiles_to_nhwc(y, n, th, tw, out_h, out_w)
 
 
-def winograd_tiles(v: torch.Tensor, u: torch.Tensor,
-                   b: Optional[torch.Tensor] = None, *, relu: bool = False,
-                   n: int, th: int, tw: int, out_h: int, out_w: int
-                   ) -> torch.Tensor:
-    """(P, 36, Cin) x (36, Cin, Cout) -> (n, out_h, out_w, Cout) f32."""
-    P, z, cin = v.shape
+def winograd_tiles(x: torch.Tensor, u: torch.Tensor,
+                   b: Optional[torch.Tensor] = None, *,
+                   padding: str = "SAME", relu: bool = False) -> torch.Tensor:
+    """(n, H, W, Cin) x (36, Cin, Cout) -> (n, out_h, out_w, Cout) f32."""
+    n, h, w, cin = x.shape
     cout = u.shape[-1]
-    if (z != 36 or tuple(u.shape[:2]) != (36, cin) or P != n * th * tw
-            or not (0 < out_h <= 4 * th and 0 < out_w <= 4 * tw)
-            or (b is not None and tuple(b.shape) != (cout,))):
-        raise ValueError(f"winograd_tiles: V {tuple(v.shape)}, U "
-                         f"{tuple(u.shape)}, n*th*tw={n * th * tw}, output "
-                         f"{(out_h, out_w)}")
-    if v.device.type == "cpu":
-        return winograd_tiles_plain(v, u, b, relu=relu, n=n, th=th, tw=tw,
-                                    out_h=out_h, out_w=out_w)
-    if v.device.type != "cuda":
-        raise ValueError(f"winograd_tiles: unsupported device {v.device}")
-    tensors = [v, u] + ([b] if b is not None else [])
+    if padding not in PADS:
+        raise ValueError(f"winograd_tiles: padding {padding!r}")
+    pad = PADS[padding]
+    out_h, out_w = h + 2 * pad - 2, w + 2 * pad - 2
+    if (u.dim() != 3 or tuple(u.shape[:2]) != (36, cin) or out_h < 1
+            or out_w < 1 or (b is not None and tuple(b.shape) != (cout,))):
+        raise ValueError(f"winograd_tiles: x {tuple(x.shape)}, U "
+                         f"{tuple(u.shape)}, padding {padding}")
+    if x.device.type == "cpu":
+        return winograd_tiles_plain(x, u, b, padding=padding, relu=relu)
+    if x.device.type != "cuda":
+        raise ValueError(f"winograd_tiles: unsupported device {x.device}")
+    tensors = [x, u] + ([b] if b is not None else [])
     for t in tensors:
-        if t.device != v.device or t.dtype != torch.float32 \
+        if t.device != x.device or t.dtype != torch.float32 \
                 or not t.is_contiguous():
             raise ValueError("winograd_tiles takes contiguous f32 tensors "
                              "on one device")
-    out = torch.empty((n, out_h, out_w, cout), device=v.device,
+    out = torch.empty((n, out_h, out_w, cout), device=x.device,
                       dtype=torch.float32)
     lib = build.library()
-    build.check(lib.winograd_tile_conv(
-        v.data_ptr(), u.data_ptr(), None if b is None else b.data_ptr(),
-        out.data_ptr(), n, th, tw, cin, cout, out_h, out_w, int(relu),
-        build.stream_handle(v.device)), "winograd_tile_conv")
+    build.check(lib.winograd_conv_fused(
+        x.data_ptr(), u.data_ptr(), None if b is None else b.data_ptr(),
+        out.data_ptr(), n, h, w, cin, cout, pad, out_h, out_w, int(relu),
+        build.stream_handle(x.device)), "winograd_conv_fused")
     winograd_tiles.launches += 1
     return out
 
@@ -72,13 +77,11 @@ def winograd_conv2d(x: torch.Tensor, w: torch.Tensor,
                     padding: str = "SAME", relu: bool = False
                     ) -> torch.Tensor:
     """Stride-1 3x3 conv (NHWC x HWIO) with bias + ReLU fused."""
-    n, _, _, cin = x.shape
+    cin = x.shape[3]
     if tuple(w.shape[:3]) != (3, 3, cin):
         raise ValueError(f"3x3 kernel over {cin} channels expected, got "
                          f"{tuple(w.shape)}")
-    cout = w.shape[3]
-    v, (out_h, out_w, th, tw) = wg.input_tiles(x, padding)
-    u = wg.transform_weights(w.to(torch.float32)).reshape(36, cin, cout)
+    u = wg.transform_weights(w.to(torch.float32)).reshape(36, cin, -1)
     bias = None if b is None else b.to(torch.float32).contiguous()
-    return winograd_tiles(v, u.contiguous(), bias, relu=relu, n=n, th=th,
-                          tw=tw, out_h=out_h, out_w=out_w)
+    return winograd_tiles(x.to(torch.float32).contiguous(), u.contiguous(),
+                          bias, padding=padding, relu=relu)

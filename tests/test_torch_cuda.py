@@ -49,12 +49,38 @@ class TestOnCard:
         w = torch.from_numpy(_normal(1, (3, 3, 19, 45))).to(dev)
         b = torch.from_numpy(_normal(2, (45,))).to(dev)
         got = winograd_conv2d(x, w, b, relu=True)
-        v, (oh, ow, th, tw) = wg.input_tiles(x)
         u = wg.transform_weights(w).reshape(36, 19, 45)
-        want = winograd_tiles_plain(v, u, b, relu=True, n=2, th=th, tw=tw,
-                                    out_h=oh, out_w=ow)
-        torch.testing.assert_close(got, want, atol=2e-3, rtol=2e-3)
+        want = winograd_tiles_plain(x.cpu(), u.cpu(), b.cpu(),
+                                    padding="SAME", relu=True)
+        torch.testing.assert_close(got.cpu(), want, atol=2e-3, rtol=2e-3)
         assert winograd_tiles.launches >= 1
+
+    @pytest.mark.parametrize("shape,padding,transposed", [
+        ((2, 64, 64, 3, 64), "SAME", False),     # conv1_1's Cin 3
+        ((1, 37, 29, 3, 5), "VALID", False),     # Cin 3, odd Cout, ragged
+        ((2, 33, 50, 24, 45), "SAME", True),     # transposed weights
+        ((1, 19, 21, 64, 72), "VALID", True),    # Cout past one block
+        ((2, 32, 32, 512, 512), "SAME", False),  # conv5_1: 16-tile blocks
+        ((1, 130, 70, 40, 33), "SAME", False)])  # 32-tile blocks, ragged
+    def test_winograd_kernel_geometry(self, shape, padding, transposed):
+        """Every shape the engine sends K1: channel counts off the MMA
+        tile (scalar and 16-byte loads), ragged tile rows and columns,
+        both paddings, the transposed image mode's weights (a strided
+        view), both block sizes; against the plain version on CPU copies."""
+        dev = _cuda()
+        n, h, w, cin, cout = shape
+        x = torch.from_numpy(_normal(h, (n, h, w, cin))).to(dev)
+        k = torch.from_numpy(_normal(w, (3, 3, cin, cout))
+                             * (2.0 / (9 * cin)) ** 0.5).to(dev)
+        if transposed:
+            k = k.transpose(0, 1)
+        b = torch.from_numpy(_normal(cout, (cout,))).to(dev)
+        got = winograd_conv2d(x, k, b, padding=padding, relu=True)
+        u = wg.transform_weights(k.cpu()).reshape(36, cin, cout)
+        want = winograd_tiles_plain(x.cpu(), u, b.cpu(), padding=padding,
+                                    relu=True)
+        assert got.shape == want.shape
+        torch.testing.assert_close(got.cpu(), want, atol=2e-3, rtol=2e-3)
 
     def test_bfp_matmul_kernel(self):
         dev = _cuda()
@@ -184,8 +210,13 @@ class TestOnCard:
     @pytest.mark.parametrize("dims", [(3, 2, 3, 32, 16, 24),
                                       (2, 1, 80, 128, 64, 64),
                                       (2, 1, 4, 120, 128, 64),
-                                      (1, 1, 2, 8, 16, 16)])
+                                      (1, 1, 2, 8, 16, 16),
+                                      (2, 2, 5, 72, 40, 20),
+                                      (3, 1, 3, 100, 8, 36),
+                                      (1, 1, 3, 128, 128, 7)])
     def test_ssd_chunk_kernel(self, dims):
+        """Contiguous operands; N and P off the 16-column tile (scalar
+        copies where rows are not 16-byte multiples), Lc below 128."""
         dev = _cuda()
         BC, G, HPG, Lc, N, P = dims
         c = torch.from_numpy(_normal(0, (BC, G, Lc, N)) * 0.3).to(dev)
@@ -197,6 +228,40 @@ class TestOnCard:
         want = ssd_chunk_plain(c, b, xdt, scum)
         for g, w in zip(got, want):
             torch.testing.assert_close(g, w, atol=3e-3, rtol=3e-3)
+
+    @pytest.mark.parametrize("shape", [(2, 256, 8, 64, 2, 64, 128),
+                                       (1, 192, 6, 20, 3, 12, 64),
+                                       (2, 96, 4, 16, 1, 24, 32)])
+    def test_ssd_chunk_strided_views(self, shape):
+        """The kernel reads ssd_scan's views of chunk_operands' tensors in
+        place (rows H * P apart, scum H apart) and gives the same y and st
+        as on contiguous copies; y comes back in (B, nc, Lc, H, P) memory
+        order."""
+        from repro_torch.kernels.ssd_scan import ops as ssd_ops
+
+        dev = _cuda()
+        Bz, L, H, P, G, N, Lc = shape
+        x = torch.from_numpy(_normal(0, (Bz, L, H, P))).to(dev)
+        dt = torch.nn.functional.softplus(
+            torch.from_numpy(_normal(1, (Bz, L, H))).to(dev)) * 0.5
+        A = -torch.exp(torch.from_numpy(_normal(2, (H,))) * 0.3).to(dev)
+        Bm = torch.from_numpy(_normal(3, (Bz, L, G, N)) * 0.3).to(dev)
+        Cm = torch.from_numpy(_normal(4, (Bz, L, G, N)) * 0.3).to(dev)
+        _, scum, xdt, Bc, Cc = ssd_ops.chunk_operands(x, dt, A, Bm, Cm, Lc)
+        BC, hpg = Bz * L // Lc, H // G
+        views = (Cc.permute(0, 1, 3, 2, 4).reshape(BC, G, Lc, N),
+                 Bc.permute(0, 1, 3, 2, 4).reshape(BC, G, Lc, N),
+                 xdt.permute(0, 1, 3, 2, 4).reshape(BC, G, hpg, Lc, P),
+                 scum.permute(0, 1, 3, 2).reshape(BC, G, hpg, Lc, 1))
+        assert views[2].data_ptr() == xdt.data_ptr()
+        y, st = ssd_chunk(*views)
+        y2, st2 = ssd_chunk(*(v.contiguous() for v in views))
+        torch.testing.assert_close(y, y2, atol=1e-6, rtol=1e-6)
+        torch.testing.assert_close(st, st2, atol=1e-6, rtol=1e-6)
+        assert y.permute(0, 3, 1, 2, 4).is_contiguous()
+        wy, wst = ssd_chunk_plain(*(v.cpu() for v in views))
+        torch.testing.assert_close(y.cpu(), wy, atol=3e-3, rtol=3e-3)
+        torch.testing.assert_close(st.cpu(), wst, atol=3e-3, rtol=3e-3)
 
     def test_ssd_scan_state_on_card(self):
         """The scan with K5 and its final state against the CPU run."""
@@ -220,17 +285,16 @@ class TestOnCard:
         dev = _cuda()
         from repro_torch import kernels
 
-        v = torch.zeros((4, 36, 3), device=dev)
+        x = torch.zeros((1, 8, 8, 3), device=dev)
         u = torch.zeros((36, 3, 5), device=dev)
-        geo = dict(n=1, th=2, tw=2, out_h=8, out_w=8)
         kernels.reset_launch_counts()
-        winograd_tiles(v, u, **geo)
+        winograd_tiles(x, u)
         assert kernels.launch_counts()["winograd_tiles"] == 1
-        with pytest.raises(ValueError):
-            winograd_tiles(v.double(), u.double(), **geo)
-        with pytest.raises(ValueError):
-            winograd_tiles(v.transpose(0, 1).contiguous().transpose(0, 1),
-                           u, **geo)
+        with pytest.raises(ValueError):       # f64 is not taken
+            winograd_tiles(x.double(), u.double())
+        with pytest.raises(ValueError):       # innermost stride 2
+            winograd_tiles(torch.zeros((1, 8, 8, 6), device=dev)[..., ::2],
+                           u)
         assert kernels.launch_counts()["winograd_tiles"] == 1
         q = torch.zeros((1, 2, 8, 16), device=dev)
         flash_attention(q, q[:, :1].contiguous(), q[:, :1].contiguous())
@@ -238,10 +302,13 @@ class TestOnCard:
             flash_attention(*(torch.zeros((1, 1, 8, 136), device=dev),) * 3)
         c = torch.zeros((1, 1, 8, 4), device=dev)
         xdt = torch.zeros((1, 1, 2, 8, 4), device=dev)
-        ssd_chunk(c, c, xdt, torch.zeros((1, 1, 2, 8, 1), device=dev))
+        scum = torch.zeros((1, 1, 2, 8, 1), device=dev)
+        ssd_chunk(c, c, xdt, scum)
         with pytest.raises(ValueError):       # f64 is not taken
-            ssd_chunk(c.double(), c.double(), xdt.double(),
-                      torch.zeros((1, 1, 2, 8, 1), device=dev).double())
+            ssd_chunk(c.double(), c.double(), xdt.double(), scum.double())
+        with pytest.raises(ValueError):       # innermost stride 2
+            ssd_chunk(c, c, torch.zeros((1, 1, 2, 8, 8), device=dev)[..., ::2],
+                      scum)
         counts = kernels.launch_counts()
         assert counts["flash_attention_padded"] == 1
         assert counts["ssd_chunk"] == 1

@@ -24,7 +24,9 @@ from repro_torch.kernels.bfp_matmul import (
 from repro_torch.kernels.bfp_matmul import ops as k2_ops
 from repro_torch.kernels.cc_label import (
     cc_label_tiled, local_spread_converge, local_spread_converge_plain)
-from repro_torch.kernels.winograd_conv import winograd_conv2d, winograd_tiles
+from repro_torch.core import winograd as wg
+from repro_torch.kernels.winograd_conv import (
+    winograd_conv2d, winograd_tiles, winograd_tiles_plain)
 from repro_torch.models.fcn import postprocess as pp
 
 torch.set_num_threads(2)
@@ -185,6 +187,106 @@ class TestWinograd:
             assert got.min() >= 0.0
 
 
+    @pytest.mark.parametrize("hwcc,padding", [
+        ((9, 14, 3, 7), "SAME"), ((9, 14, 3, 7), "VALID"),
+        ((17, 6, 8, 5), "SAME"), ((11, 13, 12, 16), "VALID")])
+    def test_kernel_plain_matches_reference(self, hwcc, padding):
+        """The kernel's plain version (input plane and U in, cropped
+        NHWC plane out, bias and ReLU fused) against the reference's
+        Pallas kernel: Cin 3, H and W not multiples of 4, both paddings."""
+        h, w, cin, cout = hwcc
+        x, k = _normal(h + w, (2, h, w, cin)), _normal(cin, (3, 3, cin, cout))
+        b = _normal(cout, (cout,))
+        u = wg.transform_weights(torch.from_numpy(k)).reshape(36, cin, cout)
+        got = winograd_tiles_plain(torch.from_numpy(x), u,
+                                   torch.from_numpy(b), padding=padding,
+                                   relu=True).numpy()
+        want = np.asarray(j_winograd(jnp.asarray(x), jnp.asarray(k),
+                                     jnp.asarray(b), padding=padding,
+                                     relu=True, interpret=True))
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got, want, atol=2e-3, rtol=2e-3)
+
+    def test_k1_shapes_of_the_program(self):
+        """The 17 stride-1 3x3 convs of VGG-16 PixelLink at 512x512,
+        batch 2, as the engine's program lists them for K1: 13 in the
+        trunk, 4 in the merge."""
+        import dataclasses
+
+        from repro_torch.configs.pixellink_std import VGG16
+        from repro_torch.models.fcn import DetectionModel, build_head
+
+        engine = DetectionModel(dataclasses.replace(VGG16,
+                                                    image_size=(512, 512)),
+                                build_head("pixellink"), "cpu").engine
+        shapes = engine.k1_shapes(2)
+        assert len(shapes) == 17
+        assert shapes[:2] == [("conv1_1", 2, 512, 512, 3, 64),
+                              ("conv1_2", 2, 512, 512, 64, 64)]
+        assert ("conv5_1", 2, 32, 32, 512, 512) in shapes
+        assert [s[0] for s in shapes[13:]] == [
+            "merge1_c3", "merge2_c3", "merge3_c3", "fuse_out"]
+        assert len({s[2:] for s in shapes}) == 12
+
+
+def _tf32(x):
+    """Round f32 to TF32 as `cvt.rna.tf32.f32` does: nearest, ties away
+    from zero, 10 stored mantissa bits."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split(x):
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+class TestTF32Premise:
+    """What K1's tensor-core design rests on, emulated in torch: a hi + lo
+    pair of TF32 terms carries an f32 operand, three products of the
+    pairs meet the kernel's tolerance, and one TF32 term does not."""
+
+    def test_hi_lo_carries_f32(self):
+        rng = np.random.default_rng(0)
+        x = torch.from_numpy((rng.standard_normal(100_000) * np.exp2(
+            rng.integers(-60, 60, 100_000))).astype(np.float32))
+        hi, lo = _split(x)
+        assert torch.equal(hi.view(torch.int32) & 0x1FFF,
+                           torch.zeros_like(x, dtype=torch.int32))
+        err = ((hi.double() + lo.double()) - x.double()).abs()
+        assert bool((err <= 2.0 ** -21 * x.double().abs()).all())
+
+    @pytest.mark.parametrize("hw,cin,cout", [(64, 64, 64), (16, 512, 512),
+                                             (64, 3, 64)])
+    def test_three_products_meet_k1_tolerance(self, hw, cin, cout):
+        """conv1_2-, conv5_1- and conv1_1-like layers: the kernel's V (f32
+        transform) and U split into hi + lo, products summed exactly, held
+        against the convolution in f64 at atol/rtol 2e-3."""
+        rng = np.random.default_rng(cin)
+        x = torch.from_numpy(rng.standard_normal((1, hw, hw, cin))
+                             .astype(np.float32))
+        w = torch.from_numpy((rng.standard_normal((3, 3, cin, cout))
+                              * (2.0 / (9 * cin)) ** 0.5).astype(np.float32))
+        b = torch.from_numpy(rng.standard_normal(cout).astype(np.float32))
+        u = wg.transform_weights(w).reshape(36, cin, cout)
+        want = torch.nn.functional.conv2d(
+            x.double().permute(0, 3, 1, 2), w.double().permute(3, 2, 0, 1),
+            b.double(), padding=1).permute(0, 2, 3, 1)
+        v, (oh, ow, th, tw) = wg.input_tiles(x)
+        (vh, vl), (uh, ul) = _split(v), _split(u)
+
+        def emulated(pairs):
+            m = sum(torch.bmm(a.double().transpose(0, 1), c.double())
+                    for a, c in pairs).float()
+            y = wg.transform_output(m.reshape(6, 6, -1, cout)
+                                    .permute(2, 3, 0, 1)).permute(2, 3, 0, 1)
+            return wg.tiles_to_nhwc(y + b, 1, th, tw, oh, ow).double()
+
+        three = emulated([(vh, ul), (vl, uh), (vh, uh)])
+        torch.testing.assert_close(three, want, atol=2e-3, rtol=2e-3)
+        one = emulated([(vh, uh)])
+        assert not torch.allclose(one, want, atol=2e-3, rtol=2e-3)
+
+
 SHAPES = ((8, 12), (13, 9), (16, 16), (24, 20))
 
 
@@ -273,8 +375,7 @@ def _meta_calls():
     i16 = dict(device=meta, dtype=torch.int16)
     return {
         "winograd_tiles": lambda: winograd_tiles(
-            torch.empty((4, 36, 3), **f32), torch.empty((36, 3, 5), **f32),
-            n=1, th=2, tw=2, out_h=8, out_w=8),
+            torch.empty((1, 8, 8, 3), **f32), torch.empty((36, 3, 5), **f32)),
         "bfp_matmul_quantized": lambda: bfp_matmul_quantized(
             torch.empty((4, 40), **i16), torch.empty((4, 2), **i32),
             torch.empty((40, 3), **i16), torch.empty((3, 2), **i32)),

@@ -33,6 +33,7 @@ from repro_torch.kernels.flash_attention.ref import mha_reference
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.kernels.flash_attention.ops import wgmma_geometry
 from repro_torch.kernels.ssd_scan import ssd_chunk, ssd_decode_step, ssd_scan
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan.ref import ssd_reference
 
 torch.set_num_threads(2)
@@ -179,10 +180,74 @@ class TestSSD:
         np.testing.assert_allclose(h.numpy(), np.asarray(jh), atol=2e-3,
                                    rtol=2e-3)
 
+    def test_chunk_reads_permuted_views(self):
+        """ssd_scan hands the kernel views of chunk_operands' tensors (no
+        copies): the same y and st as on contiguous copies of them."""
+        Bz, L, H, P, G, N, Lc = 2, 64, 4, 8, 2, 12, 16
+        xf, scum, xdt, Bc, Cc = ssd_ops.chunk_operands(
+            *(_t(a) for a in _ssd_inputs(5, Bz, L, H, P, G, N)[:5]), Lc)
+        BC, hpg = Bz * L // Lc, H // G
+        views = (Cc.permute(0, 1, 3, 2, 4).reshape(BC, G, Lc, N),
+                 Bc.permute(0, 1, 3, 2, 4).reshape(BC, G, Lc, N),
+                 xdt.permute(0, 1, 3, 2, 4).reshape(BC, G, hpg, Lc, P),
+                 scum.permute(0, 1, 3, 2).reshape(BC, G, hpg, Lc, 1))
+        assert not any(v.is_contiguous() for v in views)
+        assert all(v.stride(-1) == 1 for v in views[:3])
+        assert views[2].data_ptr() == xdt.data_ptr()
+        got = ssd_chunk(*views)
+        want = ssd_chunk(*(v.contiguous() for v in views))
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, atol=1e-6, rtol=1e-6)
+
     def test_ragged_length_raises(self):
         args = _ssd_inputs(0, 1, 48, 2, 8, 1, 8)
         with pytest.raises(ValueError, match="multiple of the chunk"):
             ssd_scan(*(_t(a) for a in args), chunk=32)
+
+
+def _tf32(x):
+    """Round f32 to TF32 as `cvt.rna.tf32.f32` does: nearest, ties away
+    from zero, 10 stored mantissa bits."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split(x):
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _mm3(a, b):
+    """a @ b as K5 issues it: hi·lo + lo·hi + hi·hi of the split operands,
+    summed exactly, rounded to the f32 accumulator."""
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    return sum(x.double() @ y.double()
+               for x, y in ((ah, bl), (al, bh), (ah, bh))).float()
+
+
+def test_three_products_meet_k5_tolerance():
+    """K5's premise at the Zamba2 chunk (Lc 128, N 64, P 64): cb, y and st
+    each as three products of hi + lo TF32 pairs, W formed in f32 between
+    them, within 3e-3 of the block computed in f64."""
+    rng = np.random.default_rng(0)
+    Lc, N, P = 128, 64, 64
+    c = torch.from_numpy(rng.standard_normal((Lc, N)).astype(np.float32) * .5)
+    b = torch.from_numpy(rng.standard_normal((Lc, N)).astype(np.float32) * .5)
+    xdt = torch.from_numpy(rng.standard_normal((Lc, P)).astype(np.float32)
+                           * .5)
+    scum = torch.cumsum(-torch.from_numpy(
+        rng.uniform(size=(Lc, 1)).astype(np.float32)), dim=0)
+    want_y, want_st = ssd_ops.ssd_chunk_plain(
+        *(t.double()[None, None] for t in (c, b)),
+        *(t.double()[None, None, None] for t in (xdt, scum)))
+    tri = torch.tril(torch.ones((Lc, Lc), dtype=torch.bool))
+    arg = torch.where(tri, scum - scum.T, torch.full((Lc, Lc), -torch.inf))
+    w = _mm3(c, b.T) * torch.exp(arg)
+    y = _mm3(w, xdt)
+    st = _mm3((xdt * torch.exp(scum[-1] - scum)).T.contiguous(), b)
+    torch.testing.assert_close(y.double(), want_y[0, 0, 0], atol=3e-3,
+                               rtol=3e-3)
+    torch.testing.assert_close(st.double(), want_st[0, 0, 0], atol=3e-3,
+                               rtol=3e-3)
 
 
 def _meta_calls():
