@@ -11,16 +11,21 @@ before the result line is printed.
    K1 at each distinct shape of the 17 3x3 convs the engine's program
    sends it (read from ``FCNEngine.k1_shapes``; 512x512, batch 2,
    conv1_2 first), K2 at each of the seven 1x1-conv matmuls (read from
-   ``FCNEngine.k2_shapes``), K3 at (2, 128, 128).  K1's plain version
-   runs on CPU copies of the inputs at conv1_1 (Cin 3), conv1_2 and
-   conv5_1 and on the card tensors elsewhere, K2's and K3's on CPU
-   copies, at the CPU tests' tolerances (K1 atol/rtol 2e-3, K2 1e-4, K3
-   labels exact).  K4 at Zamba2-2.7B's prefill (B 4, H 32,
+   ``FCNEngine.k2_shapes``), K3 at (2, 128, 128) on the synthetic
+   maps, on a serpentine in every tile and on links that are not
+   symmetric and dirty labels (``data/cc_cases``; the first two timed,
+   with the Jacobi rounds of the reference's loop printed beside).  K1's
+   plain version runs on CPU copies of the inputs at conv1_1 (Cin 3),
+   conv1_2 and conv5_1 and on the card tensors elsewhere, K2's and K3's
+   on CPU copies, at the CPU tests' tolerances (K1 atol/rtol 2e-3, K2
+   1e-4, K3 labels exact).  K4 at Zamba2-2.7B's prefill (B 4, H 32,
    L 512, D 80, causal) in bf16 and f32, at TinyLlama's GQA heads with a
-   ragged length (1, Hq 32, Hkv 4, L 1000, D 64) and at Mistral-NeMo's
-   (1, Hq 32, Hkv 8, L 1024, D 128) in bf16; K5 at Zamba2's prefill
-   (BC 16, G 1, HPG 80, Lc 128, N 64, P 64) on the strided views
-   ``ssd_scan`` hands it; both against the plain
+   ragged length (1, Hq 32, Hkv 4, L 1000, D 64) in bf16 and f32 and at
+   Mistral-NeMo's (1, Hq 32, Hkv 8, L 1024, D 128) in bf16 (``K4_CASES``;
+   in f32 q and k are scaled by 2 and v by 32, where one TF32 term
+   would miss the tolerance); K5 at
+   Zamba2's prefill (BC 16, G 1, HPG 80, Lc 128, N 64, P 64) on the
+   strided views ``ssd_scan`` hands it; both against the plain
    version on the same card tensors (K4 atol/rtol 2e-3 in f32, 1.6e-2 in
    bf16, two bf16 ulps; K5 3e-3).
    Times are CUDA-event medians of 20 calls after 3 warm-up calls, each
@@ -29,17 +34,21 @@ before the result line is printed.
    ``library_ms``), for the kernel, the plain version on the card and,
    where one PyTorch call computes the same function, that call (a
    yardstick the port never calls: ``F.conv2d``, ``torch.matmul``,
-   ``F.scaled_dot_product_attention``).  The kernel and the library call
-   are timed again with all 20 calls queued while the card sleeps, which
-   leaves device time only (``device_ms``, ``library_device_ms``).  K1's
-   times are also summed over the 17 launches of a forward pass.  The
-   bound counts the operations of K1, K2 and K5 at the TF32 tensor-core
-   peak (K1 and K5 three times: they split each operand into two TF32
-   terms; K2's operands are exact in TF32) and K4's bf16 at the bf16
-   peak.  Before phase 1,
+   ``F.scaled_dot_product_attention``; TF32 off).  The kernel and the
+   library call are timed again with all 20 calls queued while the card
+   sleeps, which leaves device time only (``device_ms``,
+   ``library_device_ms``).  K1's times are also summed over the 17
+   launches of a forward pass.  The
+   bound counts the operations of K1, K2, K5 and K4's f32 at the TF32
+   tensor-core peak (K1, K5 and K4 f32 three times: they split each
+   operand into two TF32 terms; K2's operands are exact in TF32) and K4's
+   bf16 at the bf16 peak; K3's counts one compare-and-max per pixel and
+   link, the work of a work-efficient spread, so bytes bound it.  Before
+   phase 1,
    ``cuobjdump -sass`` of the built library must show tensor-core
    instructions (HGMMA) in the bf16 flash kernel and (HMMA) in every
-   instance of K1, K2 and K5; the counts are printed.
+   instance of K1, K2, K5 and the f32 flash kernel; the counts are
+   printed.
 2. The published configuration (``configs/pixellink_std.VGG16``: width
    1.0, 512x512, merge (128, 64, 32), optimized, BFP, FP16 storage) with
    seeded random weights through ``EngineFactory``'s single-device engine
@@ -78,8 +87,8 @@ The last lines are a ``{"kernels": [...]}`` JSON line, the card's name
 and power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --profile`` also runs torch.profiler over ten
-calls of K1 (conv1_2, conv5_1), K2 (merge1_c1, head_logits), K4 (bf16
-shapes), K5 and their library calls in phase 1, over one engine step of phase 2 and over one
+calls of K1 (conv1_2, conv5_1), K2 (merge1_c1, head_logits), K4 (every
+shape), K5 and their library calls in phase 1, over one engine step of phase 2 and over one
 prefill and one decode step of phase 4, and prints the device time by
 kernel and the device's busy share of each.
 """
@@ -108,8 +117,15 @@ FCN_KERNELS = ("winograd_tiles", "bfp_matmul_quantized",
                "local_spread_converge")
 LM_KERNELS = ("flash_attention_padded", "ssd_chunk")
 PORT_KERNELS = ("winograd_fused_kernel", "bfp_matmul_kernel",
-                "cc_local_kernel", "flash_kernel", "flash_wgmma_kernel",
+                "cc_local_kernel", "flash_tf32_kernel", "flash_wgmma_kernel",
                 "ssd_chunk_kernel")     # names of the kernels in csrc/
+# K4 in phase 1: name, (B, Hq, Hkv, L, D), dtype
+K4_CASES = (
+    ("zamba2 prefill bf16", (LM_BATCH, 32, 32, LM_PROMPT, 80), "bfloat16"),
+    ("zamba2 prefill f32", (LM_BATCH, 32, 32, LM_PROMPT, 80), "float32"),
+    ("tinyllama GQA ragged bf16", (1, 32, 4, 1000, 64), "bfloat16"),
+    ("tinyllama GQA ragged f32", (1, 32, 4, 1000, 64), "float32"),
+    ("mistral-nemo GQA bf16 D 128", (1, 32, 8, 1024, 128), "bfloat16"))
 
 
 def fail(msg: str) -> None:
@@ -204,13 +220,16 @@ def sass_tensor_ops(library) -> dict:
 
 def check_tensor_cores(library) -> dict:
     """The bf16 flash kernel must issue HGMMA, and every instance of K1,
-    K2 and K5 HMMA; returns their counts by kernel."""
+    K2, K5 and the f32 flash kernel HMMA; returns their counts by
+    kernel."""
     counts = sass_tensor_ops(library)
     found = {}
     for kernel, key, op in (("winograd_tiles", "winograd_fused_kernel",
                              "HMMA"),
                             ("flash_attention_padded", "flash_wgmma_kernel",
                              "HGMMA"),
+                            ("flash_attention_padded", "flash_tf32_kernel",
+                             "HMMA"),
                             ("bfp_matmul_quantized", "bfp_matmul_kernel",
                              "HMMA"),
                             ("ssd_chunk", "ssd_chunk_kernel", "HMMA")):
@@ -222,13 +241,48 @@ def check_tensor_cores(library) -> dict:
                 f"HMMA {counts[n]['HMMA']}) in {n}")
             if counts[n][op] == 0:
                 fail(f"{n} issues no {op}: not on the tensor cores")
-        found[kernel] = {n: counts[n] for n in names}
+        found.setdefault(kernel, {}).update({n: counts[n] for n in names})
     return found
 
 
 # ---------------------------------------------------------------------------
 # phase 1: kernels against their plain versions
 # ---------------------------------------------------------------------------
+
+def k3_inputs(torch, cc_cases):
+    """K3's phase-1 batches at (2, 128, 128), as CPU int32 (labels, pos,
+    lnk): the ground-truth maps of synthetic 512x512 text, then the cases
+    of ``cc_cases`` (links that are not symmetric, dirty labels, a
+    serpentine in every 32x32 tile)."""
+    from repro_torch.data.images import SyntheticSTDData
+    from repro_torch.models.fcn import postprocess as pp
+
+    data = SyntheticSTDData(HW, seed=0).sample(0, BATCH)
+    pos = torch.from_numpy(data["score"]) > 0.5
+    lnk = pp.link_symmetrize(torch.from_numpy(data["links"])) > 0.5
+    cases = {"synthetic": [t.to(torch.int32).contiguous()
+                           for t in (pp.cc_init_labels(pos), pos, lnk)]}
+    n, h, w = cases["synthetic"][0].shape
+    for name in cc_cases.CASES:
+        cases[name] = [torch.from_numpy(a) for a in cc_cases.make_case(
+            name, 0, n, h, w, 32, 32)]
+    return cases
+
+
+def k4_inputs(torch, dims, dt, gen):
+    """q, k, v on the card and the call's keywords for a ``K4_CASES`` row.
+    In f32, q and k are scaled by 2 and v by 32, as in the on-card tests:
+    a nearly one-hot softmax over large values, where a kernel with one
+    TF32 term misses 2e-3 (at unit scale it passes;
+    tests/test_torch_kernels.py::TestTF32Premise)."""
+    B, Hq, Hkv, L, D = dims
+    dev = torch.device("cuda")
+    sq, sv = (2.0, 32.0) if dt == torch.float32 else (1.0, 1.0)
+    q = (torch.randn((B, Hq, L, D), generator=gen, device=dev) * sq).to(dt)
+    k = (torch.randn((B, Hkv, L, D), generator=gen, device=dev) * sq).to(dt)
+    v = (torch.randn((B, Hkv, L, D), generator=gen, device=dev) * sv).to(dt)
+    return q, k, v, dict(sm_scale=D ** -0.5, causal=True, kv_len=L)
+
 
 def profile_calls(torch, calls, n: int = 10) -> None:
     """torch.profiler over ``n`` back-to-back calls of each (name, fn):
@@ -245,16 +299,16 @@ def phase_kernels(torch, np, profile=False):
 
     from repro_torch.configs.pixellink_std import VGG16
     from repro_torch.core import winograd as wg
-    from repro_torch.data.images import SyntheticSTDData
     from repro_torch.kernels.bfp_matmul import (
         bfp_matmul_quantized, bfp_matmul_quantized_plain, quantize_operands)
     from repro_torch.kernels.bfp_matmul.ops import _dequantize
+    from repro_torch.data import cc_cases
     from repro_torch.kernels.cc_label import (
-        local_spread_converge, local_spread_converge_plain)
+        local_spread_converge, local_spread_converge_plain,
+        local_spread_jacobi)
     from repro_torch.kernels.winograd_conv import (
         winograd_tiles, winograd_tiles_plain)
     from repro_torch.models.fcn import DetectionModel, build_head
-    from repro_torch.models.fcn import postprocess as pp
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
@@ -358,33 +412,37 @@ def phase_kernels(torch, np, profile=False):
                 (f"torch.matmul {name}", lambda: torch.matmul(a_deq, b_deq))])
     rows["bfp_matmul_quantized"] = shapes
 
-    # K3 at (2, 128, 128): ground-truth maps of synthetic 512x512 text
-    data = SyntheticSTDData(HW, seed=0).sample(0, BATCH)
-    score = torch.from_numpy(data["score"])
-    links = torch.from_numpy(data["links"])
-    pos = score > 0.5
-    lnk = pp.link_symmetrize(links) > 0.5
-    args = [t.to(torch.int32).contiguous()
-            for t in (pp.cc_init_labels(pos), pos, lnk)]
-    dargs = [t.to(dev) for t in args]
-    got, rounds = local_spread_converge(*dargs)
-    torch.cuda.synchronize()
-    want, want_rounds = local_spread_converge_plain(*args, th=32, tw=32)
-    if not (torch.equal(got.cpu(), want)
-            and torch.equal(rounds.cpu(), want_rounds)):
-        fail("K3: kernel labels or rounds differ from the plain version")
-    t = time_row(torch, lambda: local_spread_converge(*dargs),
-                 lambda: local_spread_converge_plain(*dargs, th=32, tw=32),
-                 plain_warmup=1, plain_iters=10)
-    # each round: 8 compare-and-max per pixel of the tile
-    ops3 = float(rounds.sum()) * 32 * 32 * 8 * 2
-    bms, by = bound(nbytes(*dargs, got, rounds), ops3)
-    rows["local_spread_converge"] = [dict(
-        shape=f"labels{tuple(got.shape)} rounds={int(rounds.sum())}",
-        max_abs_err=0.0, **t, bound_ms=bms, bound_by=by)]
-    log(f"K3 local spread {tuple(got.shape)}: exact, tile rounds "
-        f"{int(rounds.min())}..{int(rounds.max())}, {fmt_times(t)} "
-        f"bound {bms:.5f} ms ({by})")
+    # K3 at (2, 128, 128), 32x32 tiles, on k3_inputs' batches; the
+    # synthetic maps (which lead the row) and the serpentine timed.  The
+    # reference's Jacobi rounds come from the plain loop on the CPU and are
+    # printed beside the time
+    cases = k3_inputs(torch, cc_cases)
+    shapes = []
+    for name, args in cases.items():
+        dargs = [t.to(dev) for t in args]
+        got = local_spread_converge(*dargs)
+        torch.cuda.synchronize()
+        want, rounds = local_spread_jacobi(*args, th=32, tw=32)
+        if not torch.equal(got.cpu(), want):
+            fail(f"K3 {name}: kernel labels differ from the plain version")
+        jacobi = (f"Jacobi rounds {int(rounds.sum())} over {rounds.numel()} "
+                  f"tiles ({int(rounds.min())}..{int(rounds.max())})")
+        if name not in ("synthetic", "serpentine"):
+            log(f"K3 {name} {tuple(got.shape)}: exact, {jacobi}")
+            continue
+        t = time_row(torch, lambda: local_spread_converge(*dargs),
+                     lambda: local_spread_converge_plain(*dargs, th=32,
+                                                         tw=32),
+                     plain_warmup=1, plain_iters=10)
+        # a work-efficient spread: one compare-and-max per pixel and link
+        bms, by = bound(nbytes(*dargs, got), 2.0 * 8 * got.numel())
+        shapes.append(dict(
+            shape=f"{name} labels{tuple(got.shape)}",
+            jacobi_rounds=int(rounds.sum()), max_abs_err=0.0, **t,
+            bound_ms=bms, bound_by=by))
+        log(f"K3 {name} {tuple(got.shape)}: exact, {jacobi}, "
+            f"{fmt_times(t)} bound {bms:.5f} ms ({by})")
+    rows["local_spread_converge"] = shapes
     return rows
 
 
@@ -401,19 +459,9 @@ def phase_lm_kernels(torch, profile=False):
     gen = torch.Generator(device=dev).manual_seed(1)
     rows = {}
     shapes = []
-    for name, (B, Hq, Hkv, L, D), dt in (
-            ("zamba2 prefill bf16", (LM_BATCH, 32, 32, LM_PROMPT, 80),
-             torch.bfloat16),
-            ("zamba2 prefill f32", (LM_BATCH, 32, 32, LM_PROMPT, 80),
-             torch.float32),
-            ("tinyllama GQA ragged bf16", (1, 32, 4, 1000, 64),
-             torch.bfloat16),
-            ("mistral-nemo GQA bf16 D 128", (1, 32, 8, 1024, 128),
-             torch.bfloat16)):
-        q = torch.randn((B, Hq, L, D), generator=gen, device=dev).to(dt)
-        k = torch.randn((B, Hkv, L, D), generator=gen, device=dev).to(dt)
-        v = torch.randn((B, Hkv, L, D), generator=gen, device=dev).to(dt)
-        geo = dict(sm_scale=D ** -0.5, causal=True, kv_len=L)
+    for name, (B, Hq, Hkv, L, D), dt in K4_CASES:
+        dt = getattr(torch, dt)
+        q, k, v, geo = k4_inputs(torch, (B, Hq, Hkv, L, D), dt, gen)
         got = flash_attention_padded(q, k, v, **geo)
         torch.cuda.synchronize()
         want = flash_attention_plain(q, k, v, **geo)
@@ -425,15 +473,24 @@ def phase_lm_kernels(torch, profile=False):
                      lambda: flash_attention_plain(q, k, v, **geo),
                      lambda: F.scaled_dot_product_attention(
                          q, k, v, is_causal=True, enable_gqa=Hq != Hkv))
-        # causal: half of the 4 B H L^2 D of QK^T and PV
+        # causal: half of the 4 B H L^2 D of QK^T and PV; in f32 three
+        # TF32 products each (3xTF32), beside the bound of the same work
+        # as f32 FMAs on the CUDA cores (the first version's)
         flops = 2.0 * B * Hq * L * L * D
-        peak = F32_PEAK if dt == torch.float32 else BF16_PEAK
-        bms, by = bound(nbytes(q, k, v, got), flops, peak)
+        extra = {}
+        if dt == torch.float32:
+            bms, by = bound(nbytes(q, k, v, got), 3 * flops, TF32_PEAK)
+            extra["cuda_core_bound_ms"] = bound(nbytes(q, k, v, got),
+                                                flops)[0]
+        else:
+            bms, by = bound(nbytes(q, k, v, got), flops, BF16_PEAK)
         shapes.append(dict(shape=f"{name} q{tuple(q.shape)} kv{tuple(k.shape)}",
-                           max_abs_err=err, **t, bound_ms=bms, bound_by=by))
+                           max_abs_err=err, **t, bound_ms=bms, bound_by=by,
+                           **extra))
         log(f"K4 {name}: max_abs_err={err:.3g} {fmt_times(t, 'sdpa')} "
-            f"bound {bms:.4f} ms ({by})")
-        if profile and dt == torch.bfloat16:
+            f"bound {bms:.4f} ms ({by})" + "".join(
+                f", {k} {x:.4f}" for k, x in extra.items()))
+        if profile:
             profile_calls(torch, [
                 (f"K4 {name}", lambda: flash_attention_padded(q, k, v, **geo)),
                 (f"sdpa {name}", lambda: F.scaled_dot_product_attention(

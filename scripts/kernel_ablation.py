@@ -1,17 +1,19 @@
 #!/usr/bin/env python3
-"""Where K1's and K5's time goes: time source variants with one part
-removed, on one NVIDIA GPU.
+"""Where K1's, K5's and K4 f32's time goes: time source variants with one
+part removed, on one NVIDIA GPU.
 
     python3 scripts/kernel_ablation.py
 
 Each variant is a copy of ``src/repro_torch/csrc/{tf32x3.cuh,
-winograd_conv.cu, ssd_chunk.cu}`` with one text substitution (its
+winograd_conv.cu, ssd_chunk.cu, flash_attention.cu}`` with one text
+substitution (its
 results are wrong by design; only its time is read), built with the
 port's nvcc flags into ``build/ablation/<variant>/``; the registers
 and spills ptxas reports for each are printed.  K1 runs at
 VGG-16 PixelLink's conv1_2, conv3_2 and conv5_1 (batch 2, 512x512), K5
 at Zamba2-2.7B's prefill chunk on the strided views ``ssd_scan`` hands
-it.  Times are device time: the median of 20 calls queued behind a
+it, K4's f32 kernel at Zamba2-2.7B's prefill attention (B 4, H 32, L 512,
+D 80, causal).  Times are device time: the median of 20 calls queued behind a
 sleep, bracketed by CUDA events.  The difference between ``base`` and a
 variant is what the removed part costs.
 """
@@ -29,7 +31,15 @@ VARIANTS = {
     "base": [],
     # one TF32 product per product instead of three
     "1xtf32": [("tf32x3.cuh", "  mma(d, ahi, blo);\n  mma(d, alo, bhi);\n",
-                "")],
+                ""),
+               ("flash_attention.cu", "if (j < jn) mma(sc[j], ahi, blo[j]);",
+                "if (j < jn && D < 0) mma(sc[j], ahi, blo[j]);"),
+               ("flash_attention.cu", "if (j < jn) mma(sc[j], alo, bhi[j]);",
+                "if (j < jn && D < 0) mma(sc[j], alo, bhi[j]);"),
+               ("flash_attention.cu", "mma(o[n], ahi, blo[n]);",
+                "if (D < 0) mma(o[n], ahi, blo[n]);"),
+               ("flash_attention.cu", "mma(o[n], alo, bhi[n]);",
+                "if (D < 0) mma(o[n], alo, bhi[n]);")],
     "k1_no_transform": [("winograd_conv.cu", "{  // rows t_i0",
                          "if (nk < 0) {  // rows t_i0")],
     "k1_no_next_load": [("winograd_conv.cu", "if (ks + 1 < nk) {",
@@ -42,8 +52,26 @@ VARIANTS = {
     "k5_no_st": [("ssd_chunk.cu", "if (u0 < UNITS) {",
                   "if (u0 < UNITS && Lc < 0) {")],
     "k5_no_exp": [("ssd_chunk.cu", "* __expf(s0", "* (s0")],
+    # K4 f32: the S = Q K^T section (K's fragment loads, splits, mma), the
+    # P V section, the next tile's copies, the softmax's exp2
+    "k4_no_s_section": [("flash_attention.cu", "if (j < jn) mma(sc[j],",
+                         "if (j < jn && D < 0) mma(sc[j],")],
+    "k4_no_pv_section": [("flash_attention.cu", "mma(o[n],",
+                          "if (D < 0) mma(o[n],")],
+    # every split (K1, K5, K4 f32) rounded by cvt.rna instead of truncated
+    "rna_split": [("tf32x3.cuh", "  hi = __float_as_uint(x) & 0xffffe000u;\n"
+                   "  lo = __float_as_uint(x - __uint_as_float(hi));\n",
+                   '  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));\n'
+                   '  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo)\n'
+                   '      : "f"(x - __uint_as_float(hi)));\n')],
+    "k4_no_next_load": [("flash_attention.cu", "if (t + 1 < ntiles) {",
+                         "if (t + 1 < ntiles && D < 0) {")],
+    "k4_no_exp": [("flash_attention.cu",
+                   "const float p = ex2(sc[j][e] - mx[e >> 1]);",
+                   "const float p = sc[j][e] - mx[e >> 1];")],
 }
-FILES = ("tf32x3.cuh", "winograd_conv.cu", "ssd_chunk.cu")
+FILES = ("tf32x3.cuh", "winograd_conv.cu", "ssd_chunk.cu",
+         "flash_attention.cu")
 
 
 def build_variants():
@@ -65,7 +93,8 @@ def build_variants():
         procs[name] = subprocess.Popen(
             [build._nvcc(), *build.NVCC_FLAGS, "-shared", "-o",
              str(d / "lib.so"),
-             str(d / "winograd_conv.cu"), str(d / "ssd_chunk.cu")],
+             str(d / "winograd_conv.cu"), str(d / "ssd_chunk.cu"),
+             str(d / "flash_attention.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, proc in procs.items():
@@ -80,6 +109,8 @@ def build_variants():
         lib.winograd_conv_fused.argtypes = list(build.SIGNATURES[
             "winograd_conv_fused"])
         lib.ssd_chunk_f32.argtypes = list(build.SIGNATURES["ssd_chunk_f32"])
+        lib.flash_attention_fwd.argtypes = list(build.SIGNATURES[
+            "flash_attention_fwd"])
         libs[name] = lib
     return libs
 
@@ -142,6 +173,10 @@ def main():
     strides = (ctypes.c_longlong * 18)(
         *c.stride()[:3], *b.stride()[:3], *xdt.stride()[:4],
         *scum.stride()[:4], *y.stride()[:4])
+    # Zamba2 attention, f32
+    qa = torch.randn((4, 32, 512, 80), device=dev, generator=gen)
+    ka, va = torch.randn_like(qa), torch.randn_like(qa)
+    oa = torch.empty_like(qa)
     stream = torch.cuda.current_stream().cuda_stream
     for name, lib in libs.items():
         row = [name]
@@ -165,6 +200,15 @@ def main():
         if fn5():
             sys.exit(f"{name}: K5 launch failed")
         row.append(f"K5 {device_ms(torch, fn5):.4f} ms")
+
+        def fn4():
+            return lib.flash_attention_fwd(
+                qa.data_ptr(), ka.data_ptr(), va.data_ptr(), oa.data_ptr(),
+                4, 32, 32, 512, 512, 80, 512, ctypes.c_float(80 ** -0.5), 1,
+                0, stream)
+        if fn4():
+            sys.exit(f"{name}: K4 launch failed")
+        row.append(f"K4 f32 {device_ms(torch, fn4):.4f} ms")
         print(" | ".join(row), flush=True)
 
 

@@ -60,23 +60,56 @@
 // doubles the P V steps; on an H100 it costs about 15% of the kernel's
 // time at the Zamba2 shape (PERF.md).
 //
-// f32, `flash_kernel`: the plain CUDA-core kernel, picked by dtype
-// (TF32 would change the f32 results the f32 LM route is held to).  One
-// 256-thread block per (64-row query block, query head, batch); the query
-// tile and one 64-row K and V tile at a time sit in shared memory; each
-// thread computes a 4 x 4 patch of the 64 x 64 score tile, the 4 threads
-// of a row run the online softmax with warp shuffles, and each thread
-// accumulates a 4-row x D/16 patch of P.V in registers.
+// f32, `flash_tf32_kernel<DP>` (the f32 LM route).  What bounds it on an
+// H100: at the Zamba2 shape the 5.37 GFLOP run three times over in
+// 3xTF32 (below) take 32.5 us at 495 TFLOP/s, against 25 us for the 84
+// MB of q/k/v/o, so operations bound it (the same products as f32 FMAs
+// on the CUDA cores, at 67 TFLOP/s, would take 80 us).  The design:
+// - one 128-thread block per (64 query rows, query head, batch), the
+//   query-block index reversed as in the bf16 grid; each warp owns 16
+//   query rows;
+// - S = Q K^T and O += P V are `mma.sync` m16n8k8 in 3xTF32 (tf32x3.cuh):
+//   Q, K, V and P are each split into hi + lo TF32 terms where their
+//   fragments are read, and each product issues three mma; the softmax
+//   sums and O stay f32.  One TF32 term would leave 2^-11 relative error
+//   on each operand, which misses the 2e-3 the f32 route is held to at the
+//   Zamba2 head's scale (tests/test_torch_kernels.py::TestTF32Premise).
+//   The split is the truncating one of tf32x3.cuh (two ALU operations:
+//   with `cvt.rna` the kernel took 1.7x as long at the Zamba2 shape,
+//   PERF.md), and each of the three products runs over every column tile
+//   before the next, so consecutive mma are independent;
+// - S and P stay in registers: the online softmax runs on S's
+//   accumulators (row max and sum by quad shuffles, m and l per row in
+//   registers, the exp2 domain on `ex2.approx`), and P feeds P V as the A
+//   operand with the k index permuted, as K5 feeds W (ssd_chunk.cu): the
+//   accumulator holds columns 2q and 2q + 1 where A wants q and q + 4, so
+//   B reads V rows 2q and 2q + 1;
+// - K and V tiles of 64 rows arrive by `cp.async` (16-byte copies where
+//   D is a multiple of 4 and the operands 16-byte aligned, else 4-byte)
+//   into a two-stage ring: the next tile's copy is issued before this
+//   tile's products; rows past Lkv and columns D..DP-1 are zero-filled,
+//   where DP is D rounded up to 16 (the instance);
+// - Q, K and V are staged raw, rows DP + 4 floats apart, and split by
+//   each warp where it reads them: staging hi and lo would double the
+//   ring and leave one block per SM at D = 80; raw, Q and the ring take
+//   5 x 64 x 84 x 4 = 107,520 B, so two blocks share an SM.  A row of
+//   DP + 4 floats puts both fragment reads (K's rows indexed by n, V's by
+//   the permuted k) in 32 distinct banks;
+// - masks apply in registers, on the tiles that hold a masked column
+//   only; a warp skips the 8-column tiles masked for all its rows (their
+//   P is 0), and the sweep stops at the causal limit and at kv_len; rows
+//   past Lq are not stored.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tf32x3.cuh"
+
 namespace {
 
 constexpr int BM = 64;          // query rows per block
 constexpr int BN = 64;          // KV rows per step
-constexpr int THREADS = 256;
 constexpr int DMAX = 128;
 constexpr float NEG_INF = -1e30f;
 
@@ -501,191 +534,294 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out, int B,
 }
 
 // ---------------------------------------------------------------------------
-// f32: the plain CUDA-core kernel
+// f32: 3xTF32 mma.sync
 // ---------------------------------------------------------------------------
 
-// shared memory: qs[BM][D+1], ks[BN][D+1], vs[BN][D], ss[BM][BN+1],
-// m[BM], l[BM], alpha[BM]
-__host__ __device__ inline size_t smem_floats(int D) {
-  return (size_t)BM * (D + 1) + (size_t)BN * (D + 1) + (size_t)BN * D +
-         (size_t)BM * (BN + 1) + 3 * BM;
+constexpr int F_THREADS = 128;                // four warps, 16 query rows each
+
+// Q, then STAGES x (K, V): 64 rows of DP + 4 floats each
+__host__ __device__ constexpr int f32_smem_bytes(int dp) {
+  return (1 + 2 * STAGES) * BM * (dp + 4) * 4;
 }
 
-__global__ void __launch_bounds__(THREADS)
-flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, float* __restrict__ out, int Hq,
-             int Hkv, int Lq, int Lkv, int D, int kv_len, float scale,
-             int causal) {
-  extern __shared__ float smem[];
-  const int ldq = D + 1;
-  float* qs = smem;
-  float* ks = qs + BM * ldq;
-  float* vs = ks + BN * ldq;
-  float* ss = vs + BN * D;
-  float* m_s = ss + BM * (BN + 1);
-  float* l_s = m_s + BM;
-  float* a_s = l_s + BM;
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
 
-  const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * BM;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+// rows [r0, r0 + 64) x columns [0, DP) of an (L, D) f32 matrix into dst
+// (rows DP + 4 floats apart), zero past row `rows` and column D; 16-byte
+// copies where `vec` (D a multiple of 4, 16-byte aligned), else 4-byte
+template <int DP>
+__device__ __forceinline__ void load_tile(float* dst, const float* src, int r0,
+                                          int rows, int D, bool vec,
+                                          int tid) {
+  constexpr int LD = DP + 4;
+  if (vec) {
+#pragma unroll 1
+    for (int i = tid; i < BM * (DP / 4); i += F_THREADS) {
+      const int r = i / (DP / 4), c = i % (DP / 4) * 4;
+      const bool in = r0 + r < rows && c < D;
+      tf32x3::cp_async16(dst + r * LD + c,
+                         in ? src + (size_t)(r0 + r) * D + c : src,
+                         in ? 16 : 0);
+    }
+  } else {
+#pragma unroll 1
+    for (int i = tid; i < BM * DP; i += F_THREADS) {
+      const int r = i / DP, c = i % DP;
+      const bool in = r0 + r < rows && c < D;
+      tf32x3::cp_async4(dst + r * LD + c,
+                        in ? src + (size_t)(r0 + r) * D + c : src,
+                        in ? 4 : 0);
+    }
+  }
+}
+
+// 2^x by the SFU (`ex2.approx`), without exp2f's range handling
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int DP>
+__global__ void __launch_bounds__(F_THREADS, 2)
+flash_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ out,
+                  int Hq, int Hkv, int Lq, int Lkv, int D, int kv_len,
+                  float scale_log2, int causal, int vec) {
+  using tf32x3::mma;
+  using tf32x3::split;
+  constexpr int LD = DP + 4, NT = DP / 8, TILE = BN * LD;
+  extern __shared__ __align__(16) float fsm[];
+  float* qs = fsm;                            // [BM][LD]
+  float* ks = qs + TILE;                      // [STAGES][BN][LD]
+  float* vs = ks + STAGES * TILE;
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BM;   // heaviest first
   const int hk = h / (Hq / Hkv);
-  const float* qg = q + ((size_t)b * Hq + h) * Lq * D;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, qd = lane % 4;
   const float* kg = k + ((size_t)b * Hkv + hk) * Lkv * D;
   const float* vg = v + ((size_t)b * Hkv + hk) * Lkv * D;
-  float* og = out + ((size_t)b * Hq + h) * Lq * D;
-
-  for (int i = tid; i < BM * D; i += THREADS) {
-    const int r = i / D, d = i % D;
-    qs[r * ldq + d] = (q0 + r < Lq) ? qg[(size_t)(q0 + r) * D + d] : 0.f;
-  }
-  if (tid < BM) {
-    m_s[tid] = NEG_INF;
-    l_s[tid] = 0.f;
-  }
-
-  // score patch: rows ty*4 + i, columns tx + 16*j
-  const int ty = tid / 16, tx = tid % 16;
-  // softmax: 4 threads per row, 16 columns each (part + 4*j)
-  const int srow = tid / 4, spart = tid % 4;
-  // accumulator patch: rows ty*4 + i, columns tx + 16*j (j < D/16)
-  float acc[4][DMAX / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DMAX / 16; ++j) acc[i][j] = 0.f;
-
   int kv_end = min(Lkv, kv_len);
   if (causal) kv_end = min(kv_end, q0 + BM);
-  for (int k0 = 0; k0 < kv_end; k0 += BN) {
-    __syncthreads();   // previous step's readers of ks/vs/ss are done
-    for (int i = tid; i < BN * D; i += THREADS) {
-      const int r = i / D, d = i % D;
-      const bool in = k0 + r < Lkv;
-      ks[r * ldq + d] = in ? kg[(size_t)(k0 + r) * D + d] : 0.f;
-      vs[r * D + d] = in ? vg[(size_t)(k0 + r) * D + d] : 0.f;
-    }
-    __syncthreads();
+  const int ntiles = (kv_end + BN - 1) / BN;
 
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float a[4], bb[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = qs[(ty * 4 + i) * ldq + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bb[j] = ks[(tx + 16 * j) * ldq + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], bb[j], s[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = q0 + ty * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = k0 + tx + 16 * j;
-        const bool keep = c < kv_len && (!causal || c <= r);
-        ss[(ty * 4 + i) * (BN + 1) + tx + 16 * j] =
-            keep ? s[i][j] * scale : NEG_INF;
-      }
-    }
-    __syncthreads();
+  load_tile<DP>(qs, q + ((size_t)b * Hq + h) * Lq * D, q0, Lq, D, vec, tid);
+  load_tile<DP>(ks, kg, 0, Lkv, D, vec, tid);
+  load_tile<DP>(vs, vg, 0, Lkv, D, vec, tid);
+  tf32x3::cp_async_commit();
 
-    // online softmax over this block, 4 threads per row
-    {
-      float* row = ss + srow * (BN + 1);
-      float mx = NEG_INF;
+  // mma m16n8 accumulator layout: this thread holds rows r0 and r0 + 8,
+  // and in each 8-column tile n the columns 8n + 2qd + {0, 1}:
+  // x[n][0..1] on row r0, x[n][2..3] on r0 + 8
+  const int r0 = q0 + warp * 16 + g;
+  const float* qw = qs + (warp * 16 + g) * LD + qd;
+  float o[NT][4];
 #pragma unroll
-      for (int j = 0; j < BN / 4; ++j) mx = fmaxf(mx, row[spart + 4 * j]);
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_prev = m_s[srow];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
+  for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int j = 0; j < BN / 4; ++j) {
-        const float p = expf(row[spart + 4 * j] - m_new);
-        row[spart + 4 * j] = p;
-        sum += p;
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      __syncwarp();
-      if (spart == 0) {
-        const float alpha = expf(m_prev - m_new);
-        a_s[srow] = alpha;
-        l_s[srow] = l_s[srow] * alpha + sum;
-        m_s[srow] = m_new;
-      }
-    }
-    __syncthreads();
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m_run[2] = {NEG_INF, NEG_INF}, l_run[2] = {0.f, 0.f};
 
-    // acc = acc * alpha + P . V
-    const int ncol = (D - tx + 15) / 16;   // columns tx + 16*j < D
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float al = a_s[ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < DMAX / 16; ++j) acc[i][j] *= al;
+  for (int t = 0; t < ntiles; ++t) {
+    const int s = t % STAGES, c0 = t * BN;
+    if (t + 1 < ntiles) {       // the next tile's copy overlaps this one
+      load_tile<DP>(ks + (s ^ 1) * TILE, kg, c0 + BN, Lkv, D, vec, tid);
+      load_tile<DP>(vs + (s ^ 1) * TILE, vg, c0 + BN, Lkv, D, vec, tid);
+      tf32x3::cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
-    for (int c = 0; c < BN; ++c) {
-      float p[4];
+    __syncthreads();            // tile t (and Q) landed for every thread
+    const float* kt = ks + s * TILE;
+    const float* vt = vs + s * TILE;
+    // 8-column tiles of this warp that hold a column it may see: the
+    // rest are masked for all its 16 rows, and skipped (P is 0 there)
+    int jn = min(BN / 8, (kv_len - c0 + 7) / 8);
+    if (causal) jn = min(jn, (q0 + warp * 16 + 15 - c0) / 8 + 1);
+
+    // S = Q K^T: A = Q rows (k = head dim), B = K rows (n = KV row)
+    float sc[BN / 8][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = ss[(ty * 4 + i) * (BN + 1) + c];
+    for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
-      for (int j = 0; j < DMAX / 16; ++j) {
-        if (j < ncol) {
-          const float vv = vs[c * D + tx + 16 * j];
+      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
 #pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(p[i], vv, acc[i][j]);
+    for (int kk = 0; kk < NT; ++kk) {
+      uint32_t ahi[4], alo[4];
+      split(qw[8 * kk], ahi[0], alo[0]);
+      split(qw[8 * kk + 8 * LD], ahi[1], alo[1]);
+      split(qw[8 * kk + 4], ahi[2], alo[2]);
+      split(qw[8 * kk + 8 * LD + 4], ahi[3], alo[3]);
+      const float* kr = kt + g * LD + 8 * kk + qd;
+      uint32_t bhi[BN / 8][2], blo[BN / 8][2];
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+        if (j < jn) {
+          split(kr[8 * j * LD], bhi[j][0], blo[j][0]);
+          split(kr[8 * j * LD + 4], bhi[j][1], blo[j][1]);
         }
+      // the three products of 3xTF32, each over all column tiles before
+      // the next, so that consecutive mma are independent
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+        if (j < jn) mma(sc[j], ahi, blo[j]);
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+        if (j < jn) mma(sc[j], alo, bhi[j]);
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+        if (j < jn) mma(sc[j], ahi, bhi[j]);
+    }
+
+    // online softmax in the log2 domain, on the accumulators
+    const bool masked = c0 + BN > kv_len || (causal && c0 + BN - 1 > q0);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = sc[j][e] * scale_log2;
+        if (masked) {
+          const int c = c0 + 8 * j + 2 * qd + (e & 1), r = r0 + 8 * (e >> 1);
+          if (c >= kv_len || (causal && c > r)) x = NEG_INF;
+        }
+        sc[j][e] = x;
+      }
+    float mx[2] = {m_run[0], m_run[1]};
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      mx[0] = fmaxf(mx[0], fmaxf(sc[j][0], sc[j][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(sc[j][2], sc[j][3]));
+    }
+    float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      alpha[i] = ex2(m_run[i] - mx[i]);
+      m_run[i] = mx[i];
+    }
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = ex2(sc[j][e] - mx[e >> 1]);
+        sc[j][e] = p;
+        sum[e >> 1] += p;
+      }
+    // l is kept per thread (its 16 columns) and summed over the quad at
+    // the end: alpha is the same for the 4 threads of a row
+    l_run[0] = l_run[0] * alpha[0] + sum[0];
+    l_run[1] = l_run[1] * alpha[1] + sum[1];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      o[n][0] *= alpha[0];
+      o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1];
+      o[n][3] *= alpha[1];
+    }
+
+    // O += P V, P from the accumulators as A with the k index permuted:
+    // they hold columns 2qd, 2qd + 1 where A's k-slots qd, qd + 4 are
+    // wanted, so slot qd takes column 2qd, slot qd + 4 column 2qd + 1,
+    // and B reads V rows 8j + 2qd and 8j + 2qd + 1
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      if (j < jn) {
+        uint32_t ahi[4], alo[4];
+        split(sc[j][0], ahi[0], alo[0]);
+        split(sc[j][2], ahi[1], alo[1]);
+        split(sc[j][1], ahi[2], alo[2]);
+        split(sc[j][3], ahi[3], alo[3]);
+        const float* vr = vt + (8 * j + 2 * qd) * LD + g;
+        uint32_t bhi[NT][2], blo[NT][2];
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          split(vr[8 * n], bhi[n][0], blo[n][0]);
+          split(vr[LD + 8 * n], bhi[n][1], blo[n][1]);
+        }
+#pragma unroll
+        for (int n = 0; n < NT; ++n) mma(o[n], ahi, blo[n]);
+#pragma unroll
+        for (int n = 0; n < NT; ++n) mma(o[n], alo, bhi[n]);
+#pragma unroll
+        for (int n = 0; n < NT; ++n) mma(o[n], ahi, bhi[n]);
       }
     }
+    __syncthreads();            // every warp is done with stage s
   }
-  __syncthreads();
 
-  const int ncol = (D - tx + 15) / 16;
+  float inv[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty * 4 + i;
+  for (int i = 0; i < 2; ++i) {
+    float l = l_run[i];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    inv[i] = 1.f / fmaxf(l, 1e-30f);
+  }
+  float* og = out + ((size_t)b * Hq + h) * Lq * D;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + 8 * i;
     if (r >= Lq) continue;
-    const float inv_l = 1.f / fmaxf(l_s[ty * 4 + i], 1e-30f);
 #pragma unroll
-    for (int j = 0; j < DMAX / 16; ++j) {
-      if (j < ncol)
-        og[(size_t)r * D + tx + 16 * j] = acc[i][j] * inv_l;
+    for (int n = 0; n < NT; ++n) {
+      const int c = 8 * n + 2 * qd;
+      if (c < D) og[(size_t)r * D + c] = o[n][2 * i] * inv[i];
+      if (c + 1 < D) og[(size_t)r * D + c + 1] = o[n][2 * i + 1] * inv[i];
     }
   }
 }
 
+template <int DP>
+int launch_tf32(const void* q, const void* k, const void* v, void* out, int B,
+                int Hq, int Hkv, int Lq, int Lkv, int D, int kv_len,
+                float scale, int causal, cudaStream_t stream) {
+  constexpr int smem = f32_smem_bytes(DP);
+  static bool configured = false;   // the attribute is set once per instance
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_tf32_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  const int vec = D % 4 == 0 && ((reinterpret_cast<uintptr_t>(q) |
+                                  reinterpret_cast<uintptr_t>(k) |
+                                  reinterpret_cast<uintptr_t>(v)) & 15) == 0;
+  dim3 grid(Hq, B, (Lq + BM - 1) / BM);
+  flash_tf32_kernel<DP><<<grid, F_THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), Hq, Hkv, Lq,
+      Lkv, D, kv_len, scale * LOG2E, causal, vec);
+  return (int)cudaGetLastError();
+}
+
+// the head dim rounded up to 16 picks the instance
 int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
                int Hq, int Hkv, int Lq, int Lkv, int D, int kv_len,
                float scale, int causal, cudaStream_t stream) {
-  const int smem = (int)(smem_floats(D) * sizeof(float));
-  static int configured = 0;        // the largest size set so far
-  if (smem > configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    configured = smem;
+#define FLASH_TF32(DP)                                                       \
+  case DP / 16:                                                              \
+    return launch_tf32<DP>(q, k, v, out, B, Hq, Hkv, Lq, Lkv, D, kv_len,    \
+                           scale, causal, stream);
+  switch ((D + 15) / 16) {
+    FLASH_TF32(16) FLASH_TF32(32) FLASH_TF32(48) FLASH_TF32(64)
+    FLASH_TF32(80) FLASH_TF32(96) FLASH_TF32(112) FLASH_TF32(128)
   }
-  dim3 grid((Lq + BM - 1) / BM, Hq, B);
-  flash_kernel<<<grid, THREADS, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), Hq, Hkv, Lq,
-      Lkv, D, kv_len, scale, causal);
-  return (int)cudaGetLastError();
+#undef FLASH_TF32
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (wgmma, D a multiple of 8)
+// dtype: 0 = float32 (3xTF32 mma.sync, any D up to 128), 1 = bfloat16
+// (wgmma, D a multiple of 8)
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* out, int B, int Hq,
                                    int Hkv, int Lq, int Lkv, int D,

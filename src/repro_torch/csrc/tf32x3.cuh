@@ -1,31 +1,33 @@
 // TF32 tensor-core products and cp.async copies, shared by K1
-// (winograd_conv.cu) and K5 (ssd_chunk.cu), which take f32-accurate
-// products in "3xTF32", and K2 (bfp_matmul.cu), whose operands are exact
-// in TF32.
+// (winograd_conv.cu), K5 (ssd_chunk.cu) and K4's f32 kernel
+// (flash_attention.cu), which take f32-accurate products in "3xTF32", and
+// K2 (bfp_matmul.cu), whose operands are exact in TF32.
 //
-// An f32 operand v is split where it is staged into hi = tf32(v) and
-// lo = tf32(v - hi) (`cvt.rna`, round to nearest): hi keeps 11
-// significant bits, lo the next 11, so hi + lo equals v to about 2^-22
-// relative.  A product a * b is issued as hi_a*lo_b + lo_a*hi_b +
-// hi_a*hi_b into one f32 accumulator (the dropped lo_a*lo_b is 2^-22 of
-// it).  One TF32 term alone leaves 2^-11 relative per operand, which the
-// Winograd transforms (coefficients up to 8) and K5's decayed sums carry
-// past their tolerances.
+// An f32 operand x is split where it is read into hi = x with its 13 low
+// bits cleared (truncated to TF32) and lo = x - hi, exact in f32 and
+// passed as it is: the tensor cores read only the top 19 bits of a TF32
+// operand, so lo is truncated there.  hi and lo keep 11 significant bits
+// each, and hi + lo equals x to 2^-21 relative.  A product a * b is
+// issued as hi_a*lo_b + lo_a*hi_b + hi_a*hi_b into one f32 accumulator
+// (the dropped lo_a*lo_b is below 2^-20 of it).  One TF32 term alone
+// leaves 2^-11 relative per operand, which the Winograd transforms
+// (coefficients up to 8), K5's decayed sums and the nearly one-hot
+// softmax of K4 at large |v| carry past their tolerances.  The split is
+// two ALU operations; `cvt.rna.tf32` (round to nearest, 2^-22) is the
+// dearer instruction where every fragment read is split, and the
+// truncating split stays far inside every kernel's tolerance (emulated
+// on the CPU in tests/test_torch_kernels.py::TestTF32Premise and
+// tests/test_torch_lm_kernels.py; timed both ways by
+// scripts/kernel_ablation.py).
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace tf32x3 {
 
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
 __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(x - __uint_as_float(hi));
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
 // d += a * b, m16n8k8, TF32 operands, f32 accumulators.  Fragments (g =

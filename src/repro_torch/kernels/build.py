@@ -41,8 +41,8 @@ SIGNATURES = {
     # ma, ea, mb, eb, out, M, N, K, block_size, mantissa_bits, tile_m,
     # tile_n, splits, stream
     "bfp_matmul_f32": (_P,) * 5 + (_I,) * 8 + (_P,),
-    # labels, pos, lnk, out, rounds, N, H, W, th, tw, stream
-    "cc_local_spread": (_P,) * 5 + (_I,) * 5 + (_P,),
+    # labels, pos, lnk, out, N, H, W, th, tw, stream
+    "cc_local_spread": (_P,) * 4 + (_I,) * 5 + (_P,),
     # q, k, v, out, B, Hq, Hkv, Lq, Lkv, D, kv_len, scale, causal, dtype,
     # stream
     "flash_attention_fwd": (_P,) * 4 + (_I,) * 7 + (_F, _I, _I, _P),

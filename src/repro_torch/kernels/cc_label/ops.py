@@ -2,8 +2,9 @@
 
 Phase 1, :func:`local_spread_converge`, runs every (th, tw) tile of every
 image to its tile-local spread fixpoint; on a CUDA tensor that launches
-``csrc/cc_label.cu``, on a CPU tensor it runs
-:func:`local_spread_converge_plain`.  Phase 2 stitches the tiles with
+``csrc/cc_label.cu`` (row and column scans between full 8-neighbour
+hops), on a CPU tensor it runs :func:`local_spread_converge_plain` (the
+reference's Jacobi loop).  Phase 2 stitches the tiles with
 global one-hop spread + pointer-jump rounds in torch ops, up to
 ``max_iters`` per image.  Both phases are monotone toward the same
 fixpoint as the plain spread, so :func:`cc_label_tiled` returns exactly
@@ -31,9 +32,10 @@ def _tiles(a: torch.Tensor, th: int, tw: int) -> torch.Tensor:
     return a.reshape(-1, th, tw, *rest)
 
 
-def local_spread_converge_plain(labels, pos, lnk, *, th: int, tw: int):
-    """Plain torch version of the kernel: ``(labels, rounds)`` with the
-    per-tile round count (N, H/th, W/tw)."""
+def local_spread_jacobi(labels, pos, lnk, *, th: int, tw: int):
+    """The reference's loop in torch: Jacobi rounds of the one-hop spread
+    on every tile until it stops changing.  Returns ``(labels, rounds)``
+    with the per-tile round count (N, H/th, W/tw)."""
     n, h, w = labels.shape
     lab = _tiles(labels, th, tw)
     p = _tiles(pos, th, tw) != 0
@@ -43,12 +45,19 @@ def local_spread_converge_plain(labels, pos, lnk, *, th: int, tw: int):
     return out.reshape(n, h, w), rounds.reshape(n, h // th, w // tw)
 
 
+def local_spread_converge_plain(labels, pos, lnk, *, th: int, tw: int):
+    """Plain torch version of the kernel: the tile-local fixpoint labels."""
+    return local_spread_jacobi(labels, pos, lnk, th=th, tw=tw)[0]
+
+
 def local_spread_converge(labels: torch.Tensor, pos: torch.Tensor,
                           lnk: torch.Tensor, *, th: int = MAX_TILE,
-                          tw: int = MAX_TILE):
+                          tw: int = MAX_TILE) -> torch.Tensor:
     """labels, pos (N, H, W) int32 and lnk (N, H, W, 8) int32 -> the
-    tile-local fixpoint labels (N, H, W) int32 and the rounds each tile
-    ran (N, H/th, W/tw) int32.  H and W must be tile multiples."""
+    tile-local fixpoint labels (N, H, W) int32.  H and W must be tile
+    multiples.  The CUDA kernel reaches the fixpoint by row and column
+    scans between full hops, in fewer rounds than the reference's Jacobi
+    loop (:func:`local_spread_jacobi` counts those)."""
     n, h, w = labels.shape
     if h % th or w % tw or not (0 < th <= MAX_TILE and 0 < tw <= MAX_TILE):
         raise ValueError(f"plane {(h, w)} is not a multiple of tiles "
@@ -66,16 +75,16 @@ def local_spread_converge(labels: torch.Tensor, pos: torch.Tensor,
                 or not t.is_contiguous():
             raise ValueError("local_spread_converge takes contiguous int32 "
                              "tensors on one device")
+    if lnk.data_ptr() % 16:                  # two 16-byte loads a pixel
+        raise ValueError("local_spread_converge takes 16-byte aligned links")
     out = torch.empty_like(labels)
-    rounds = torch.empty((n, h // th, w // tw), device=labels.device,
-                         dtype=torch.int32)
     lib = build.library()
     build.check(lib.cc_local_spread(
         labels.data_ptr(), pos.data_ptr(), lnk.data_ptr(), out.data_ptr(),
-        rounds.data_ptr(), n, h, w, th, tw,
-        build.stream_handle(labels.device)), "cc_local_spread")
+        n, h, w, th, tw, build.stream_handle(labels.device)),
+        "cc_local_spread")
     local_spread_converge.launches += 1
-    return out, rounds
+    return out
 
 
 local_spread_converge.launches = 0
@@ -104,7 +113,7 @@ def cc_label_tiled(score: torch.Tensor, links: torch.Tensor,
         cfg = (0, 0) * (a.ndim - 3) + (0, pw, 0, ph)
         return F.pad(a, cfg).contiguous()
 
-    local, _ = local_spread_converge(pad(pp.cc_init_labels(pos)), pad(pos),
+    local = local_spread_converge(pad(pp.cc_init_labels(pos)), pad(pos),
                                      pad(lnk), th=bh, tw=bw)
     labels, iters, converged = pp.merge_rounds(
         local[:, :h, :w], pos, lnk, max_iters)

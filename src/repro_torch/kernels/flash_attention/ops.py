@@ -6,9 +6,11 @@ default); :func:`flash_attention_padded` runs the kernel on a CUDA tensor
 tensor.  The CUDA kernel masks a ragged length itself, so nothing is
 padded.  In bf16 it runs on the tensor cores (``wgmma``, K/V fed by TMA)
 and takes any head dim that is a multiple of 8 up to 128
-(:func:`wgmma_geometry`); in f32 it runs on the CUDA cores and takes any
-head dim up to 128.  :func:`decode_attention`, one new token against a
-KV cache, stays torch ops, as the reference keeps it jnp.
+(:func:`wgmma_geometry`); in f32 it runs on the TF32 tensor cores in
+3xTF32 (each operand split into two TF32 terms, three ``mma.sync`` per
+product, f32-accurate) and takes any head dim up to 128.
+:func:`decode_attention`, one new token against a KV cache, stays torch
+ops, as the reference keeps it jnp.
 """
 from __future__ import annotations
 
@@ -62,7 +64,9 @@ def flash_attention_padded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            *, sm_scale: float, causal: bool,
                            kv_len: int) -> torch.Tensor:
     """q (B, Hq, Lq, D), k/v (B, Hkv, Lkv, D) -> (B, Hq, Lq, D) in q's
-    type; columns at or past ``kv_len`` are masked."""
+    type; columns at or past ``kv_len`` are masked.  On a CUDA tensor the
+    kernel runs bf16 on ``wgmma`` and f32 on 3xTF32 ``mma.sync``; on a CPU
+    tensor :func:`flash_attention_plain` runs."""
     B, Hq, Lq, D = q.shape
     if (k.dim() != 4 or k.shape != v.shape or k.shape[0] != B
             or k.shape[3] != D or Hq % k.shape[1] != 0 or Lq != k.shape[2]):

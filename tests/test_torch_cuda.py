@@ -10,9 +10,11 @@ import pytest
 import torch
 
 from repro_torch.core import winograd as wg
+from repro_torch.data import cc_cases
 from repro_torch.kernels.bfp_matmul import (
     bfp_matmul_quantized, bfp_matmul_quantized_plain, quantize_operands)
-from repro_torch.kernels.cc_label import cc_label_tiled, local_spread_converge
+from repro_torch.kernels.cc_label import (
+    cc_label_tiled, local_spread_converge, local_spread_converge_plain)
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_padded,
                                                  flash_attention_plain)
@@ -133,6 +135,49 @@ class TestOnCard:
         for g, w in zip(got, want):
             assert torch.equal(g.cpu(), w)
         assert local_spread_converge.launches >= 1
+
+    @pytest.mark.parametrize("name", cc_cases.CASES)
+    @pytest.mark.parametrize("th,tw", [(8, 8), (8, 24), (32, 32)])
+    def test_cc_kernel_adversarial(self, name, th, tw):
+        """The scan kernel's labels bit-equal to the plain Jacobi loop's on
+        links that are not symmetric, dirty labels (negative ones and
+        labels on non-positive pixels) and a serpentine in every tile."""
+        dev = _cuda()
+        args = [torch.from_numpy(a) for a in cc_cases.make_case(
+            name, th + tw, 2, 3 * th, 2 * tw, th, tw)]
+        local_spread_converge.launches = 0
+        got = local_spread_converge(*(a.to(dev) for a in args), th=th, tw=tw)
+        want = local_spread_converge_plain(*args, th=th, tw=tw)
+        assert torch.equal(got.cpu(), want)
+        assert local_spread_converge.launches == 1
+
+    def test_cc_kernel_refuses_unaligned_links(self):
+        dev = _cuda()
+        lab = torch.zeros((1, 8, 8), dtype=torch.int32, device=dev)
+        lnk = torch.zeros(8 * 8 * 8 + 1, dtype=torch.int32,
+                          device=dev)[1:].view(1, 8, 8, 8)
+        with pytest.raises(ValueError, match="aligned"):
+            local_spread_converge(lab, lab, lnk, th=8, tw=8)
+
+    @pytest.mark.parametrize("D", [30, 64, 80, 100, 128])
+    @pytest.mark.parametrize("L,group", [(257, 4), (1000, 1)])
+    def test_flash_attention_f32_tensor_cores(self, D, L, group):
+        """The 3xTF32 kernel at head dims on and off its 16-column
+        instances (30: 4-byte copies), GQA 4 and MHA, lengths off the
+        64-row KV tile; causal, then non-causal with kv_len < L; at the
+        Zamba2 prefill's scale (q and k x2, v x32: a sharp softmax), where
+        one TF32 term would miss the f32 tolerance."""
+        dev = _cuda()
+        B, Hkv = 2, 2
+        Hq = Hkv * group
+        q = torch.from_numpy(_normal(D, (B, Hq, L, D)) * 2).to(dev)
+        k = torch.from_numpy(_normal(L, (B, Hkv, L, D)) * 2).to(dev)
+        v = torch.from_numpy(_normal(7, (B, Hkv, L, D)) * 32).to(dev)
+        for causal, kv_len in ((True, L), (False, L - 70)):
+            geo = dict(sm_scale=D ** -0.5, causal=causal, kv_len=kv_len)
+            got = flash_attention_padded(q, k, v, **geo)
+            want = flash_attention_plain(q, k, v, **geo)
+            torch.testing.assert_close(got, want, atol=2e-3, rtol=2e-3)
 
     @pytest.mark.parametrize("shape,dtype,causal,tol", [
         ((2, 8, 2, 257, 32), torch.float32, True, 2e-3),

@@ -23,7 +23,10 @@ from repro_torch.kernels.bfp_matmul import (
     quantize_operands)
 from repro_torch.kernels.bfp_matmul import ops as k2_ops
 from repro_torch.kernels.cc_label import (
-    cc_label_tiled, local_spread_converge, local_spread_converge_plain)
+    cc_label_tiled, local_spread_converge, local_spread_converge_plain,
+    local_spread_jacobi)
+from repro_torch.data import cc_cases
+from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.core import winograd as wg
 from repro_torch.kernels.winograd_conv import (
     winograd_conv2d, winograd_tiles, winograd_tiles_plain)
@@ -229,21 +232,24 @@ class TestWinograd:
         assert len({s[2:] for s in shapes}) == 12
 
 
-def _tf32(x):
-    """Round f32 to TF32 as `cvt.rna.tf32.f32` does: nearest, ties away
-    from zero, 10 stored mantissa bits."""
-    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+def _trunc(x):
+    """f32 as the tensor cores read a TF32 operand: the 13 low bits
+    dropped."""
+    return (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
 
 
 def _split(x):
-    hi = _tf32(x)
-    return hi, _tf32(x - hi)
+    """The kernels' split (tf32x3::split): hi truncated, lo = x - hi as
+    the tensor cores read it."""
+    hi = _trunc(x)
+    return hi, _trunc(x - hi)
 
 
 class TestTF32Premise:
-    """What K1's tensor-core design rests on, emulated in torch: a hi + lo
-    pair of TF32 terms carries an f32 operand, three products of the
-    pairs meet the kernel's tolerance, and one TF32 term does not."""
+    """What K1's and K4 f32's tensor-core designs rest on, emulated in
+    torch: a hi + lo pair of TF32 terms carries an f32 operand, three
+    products of the pairs meet the kernel's tolerance, and one TF32 term
+    does not."""
 
     def test_hi_lo_carries_f32(self):
         rng = np.random.default_rng(0)
@@ -285,6 +291,49 @@ class TestTF32Premise:
         torch.testing.assert_close(three, want, atol=2e-3, rtol=2e-3)
         one = emulated([(vh, uh)])
         assert not torch.allclose(one, want, atol=2e-3, rtol=2e-3)
+
+    @pytest.mark.parametrize("qk_scale,v_scale,one_misses", [
+        (1.0, 1.0, False), (2.0, 32.0, True)])
+    def test_three_products_meet_k4_f32_tolerance(self, qk_scale, v_scale,
+                                                  one_misses):
+        """K4's f32 kernel on a small head (L 128, D 80, causal): Q, K, P
+        and V split into hi + lo by truncation as the kernel splits them,
+        both products as three TF32 products summed exactly, the softmax
+        in f32 (P unnormalised, divided by l at the end, as the kernel
+        does), held against the plain f32 version at atol/rtol 2e-3.  At
+        unit scale one TF32 term passes too, using 56% of the tolerance;
+        at the Zamba2 prefill's scale (q and k x2, |v| up to ~100, a
+        nearly one-hot softmax) it misses by 33x, where three products
+        use 4%."""
+        rng = np.random.default_rng(80)
+        q, k = (torch.from_numpy(rng.standard_normal((1, 4, 128, 80))
+                                 .astype(np.float32)) * qk_scale
+                for _ in range(2))
+        v = torch.from_numpy(rng.standard_normal((1, 4, 128, 80))
+                             .astype(np.float32)) * v_scale
+        want = flash_attention_plain(q, k, v, sm_scale=80 ** -0.5,
+                                     causal=True, kv_len=128)
+
+        def product(a, b, eq, three):
+            if not three:
+                return torch.einsum(eq, _trunc(a).double(),
+                                    _trunc(b).double()).float()
+            (ah, al), (bh, bl) = _split(a), _split(b)
+            return sum(torch.einsum(eq, x.double(), y.double())
+                       for x, y in ((ah, bl), (al, bh), (ah, bh))).float()
+
+        def emulated(three):
+            s = product(q, k, "bhqd,bhkd->bhqk", three) * 80 ** -0.5
+            causal = torch.ones((128, 128), dtype=torch.bool).tril()
+            s = torch.where(causal, s, torch.full_like(s, -1e30))
+            p = torch.exp(s - s.amax(-1, keepdim=True))
+            return product(p, v, "bhqk,bhkd->bhqd", three) \
+                / p.sum(-1, keepdim=True)
+
+        torch.testing.assert_close(emulated(True), want, atol=2e-3,
+                                   rtol=2e-3)
+        one_ok = torch.allclose(emulated(False), want, atol=2e-3, rtol=2e-3)
+        assert one_ok != one_misses
 
 
 SHAPES = ((8, 12), (13, 9), (16, 16), (24, 20))
@@ -341,22 +390,39 @@ class TestCCLabel:
         assert np.array_equal(got, want)
         assert len(np.unique(got[0][score[0] > 0.5])) == 1
 
-    @pytest.mark.parametrize("seed", [0, 1])
-    def test_local_spread_plain_matches_kernel(self, seed):
-        """Phase 1 alone: labels equal the reference kernel's, and the
-        per-tile round counts are those of its while loop."""
-        score, links = _maps(seed, 2, 16, 24, 0.7)
-        pos = score > 0.5
-        lnk = np.asarray(jpp.link_symmetrize(jnp.asarray(links))) > 0.5
-        init = np.where(pos, np.arange(1, 16 * 24 + 1).reshape(16, 24), 0) \
-            .astype(np.int32)
-        args = (init, pos.astype(np.int32), lnk.astype(np.int32))
-        got, rounds = local_spread_converge_plain(
-            *(torch.from_numpy(a) for a in args), th=8, tw=8)
-        want = j_local(*(jnp.asarray(a) for a in args), th=8, tw=8,
+    @pytest.mark.parametrize("case", [0, 1] + [
+        pytest.param((name, th, tw), id=f"{name}-{th}x{tw}")
+        for name in cc_cases.CASES for th, tw in ((8, 8), (8, 24), (32, 32))])
+    def test_local_spread_plain_matches_kernel(self, case):
+        """Phase 1 alone: labels equal the reference kernel's, on random
+        symmetrized maps (seeds 0 and 1, 8x8 tiles) and on the three
+        inputs of ``data/cc_cases`` (links that are not symmetric, dirty
+        labels, a serpentine) at three tile shapes; the per-tile Jacobi
+        round counts of the plain loop, which chip_smoke prints, are at
+        least 1, and about half the tile's pixels on the serpentine."""
+        if isinstance(case, int):
+            score, links = _maps(case, 2, 16, 24, 0.7)
+            pos = score > 0.5
+            lnk = np.asarray(jpp.link_symmetrize(jnp.asarray(links))) > 0.5
+            args = (cc_cases.init_labels(pos), pos.astype(np.int32),
+                    lnk.astype(np.int32))
+            name, th, tw = "random", 8, 8
+        else:
+            name, th, tw = case
+            args = cc_cases.make_case(name, th + tw, 2, 2 * th, 2 * tw, th,
+                                      tw)
+        targs = [torch.from_numpy(a) for a in args]
+        got = local_spread_converge_plain(*targs, th=th, tw=tw)
+        want = j_local(*(jnp.asarray(a) for a in args), th=th, tw=tw,
                        interpret=True)
         assert np.array_equal(got.numpy(), np.asarray(want))
-        assert rounds.shape == (2, 2, 3) and int(rounds.min()) >= 1
+        same, rounds = local_spread_jacobi(*targs, th=th, tw=tw)
+        assert torch.equal(same, got)
+        n, h, w = args[0].shape
+        assert rounds.shape == (n, h // th, w // tw)
+        assert int(rounds.min()) >= 1
+        if name == "serpentine":
+            assert int(rounds.min()) > th * tw // 2 - th
 
     def test_link_symmetrize_wraps_around(self):
         """The reciprocal link is read with a wrap-around roll, as in the

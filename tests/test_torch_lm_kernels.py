@@ -205,15 +205,11 @@ class TestSSD:
             ssd_scan(*(_t(a) for a in args), chunk=32)
 
 
-def _tf32(x):
-    """Round f32 to TF32 as `cvt.rna.tf32.f32` does: nearest, ties away
-    from zero, 10 stored mantissa bits."""
-    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
 def _split(x):
-    hi = _tf32(x)
-    return hi, _tf32(x - hi)
+    """The kernels' split (tf32x3::split): hi = x truncated to TF32 (13
+    low bits dropped), lo = x - hi truncated as the tensor cores read it."""
+    hi = (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
+    return hi, (((x - hi).view(torch.int32)) & ~0x1FFF).view(torch.float32)
 
 
 def _mm3(a, b):
