@@ -11,7 +11,9 @@ before the result line is printed.
    K1 at each distinct shape of the 17 3x3 convs the engine's program
    sends it (read from ``FCNEngine.k1_shapes``; 512x512, batch 2,
    conv1_2 first), K2 at each of the seven 1x1-conv matmuls (read from
-   ``FCNEngine.k2_shapes``), K3 at (2, 128, 128) on the synthetic
+   ``FCNEngine.k2_shapes``) in 10 mantissa bits and at merge1_c1 also in
+   15 (the hi + lo instances; the row's second shape), K3 at (2, 128,
+   128) on the synthetic
    maps, on a serpentine in every tile and on links that are not
    symmetric and dirty labels (``data/cc_cases``; the first two timed,
    with the Jacobi rounds of the reference's loop printed beside).  K1's
@@ -40,8 +42,9 @@ before the result line is printed.
    ``library_device_ms``).  K1's times are also summed over the 17
    launches of a forward pass.  The
    bound counts the operations of K1, K2, K5 and K4's f32 at the TF32
-   tensor-core peak (K1, K5 and K4 f32 three times: they split each
-   operand into two TF32 terms; K2's operands are exact in TF32) and K4's
+   tensor-core peak (K1, K5, K4 f32 and K2 above 10 bits three times:
+   they split each operand into two TF32 terms; K2's 10-bit operands are
+   exact in TF32) and K4's
    bf16 at the bf16 peak; K3's counts one compare-and-max per pixel and
    link, the work of a work-efficient spread, so bytes bound it.  Before
    phase 1,
@@ -61,7 +64,22 @@ before the result line is printed.
 3. Serving: ``STDService(width=1.0, precision="bfp", buckets=(128, 256,
    512), merge_ch=(128, 64, 32), device="cuda")`` answers 6 requests of
    ``RequestStream(6, seed=0, hw_range=((256, 512), (256, 512)))`` one by
-   one; the boxes per request and the median latency are printed.
+   one with boxes from the host (boxes per request and the median latency
+   printed).  A second service with the same weights,
+   ``postprocess="device", max_batch=4, max_wait_ms=5, inflight=1``,
+   must: (a) give the same boxes on those 6 one by one; (b) run one
+   ``boxes_fn`` call under ``torch.cuda.set_sync_debug_mode("error")``
+   (no host sync), its rows bit-equal to its CPU run; (c) give the same
+   boxes from ``serve_pipelined``; (d) give from ``serve_batched`` on
+   ``RequestStream(24, seed=1, ...)`` the boxes of sequential serving of
+   the same 24, with a mean batch above 1; (e) with ``boxes_capacity=1``
+   fall back to the label map on a multi-component request, boxes equal,
+   ``pp_overflow`` counting it; (f) measure one 512x512 batch-4 engine's
+   peak memory beside the planned one.  Every route's launches are
+   counted from 0: K1 17, K2 7 and K3 1 per batch.  Sequential,
+   pipelined and batched images/s, p50/p99 latency from
+   ``metrics_snapshot()`` and the ``metrics_prometheus()`` line count are
+   printed.
 4. LM serving at full width and depth: ``zamba2-2.7b`` (54 Mamba2 layers,
    one shared attention block at 9 sites, 2.42 B parameters) with seeded
    random bf16 weights drawn on the card, batch 4, 512-token prompts,
@@ -88,9 +106,11 @@ and power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --profile`` also runs torch.profiler over ten
 calls of K1 (conv1_2, conv5_1), K2 (merge1_c1, head_logits), K4 (every
-shape), K5 and their library calls in phase 1, over one engine step of phase 2 and over one
-prefill and one decode step of phase 4, and prints the device time by
-kernel and the device's busy share of each.
+shape), K5 and their library calls in phase 1, over one engine step of
+phase 2, over one serving step (device box tail and copy to the host
+included) at batch 1 and 4 in phase 3 and over one prefill and one
+decode step of phase 4, and prints the device time by kernel and the
+device's busy share of each.
 """
 import dataclasses
 import json
@@ -379,7 +399,8 @@ def phase_kernels(torch, np, profile=False):
     rows["winograd_tiles"] = shapes
 
     # K2 at every 1x1 conv of the program (merge1_c1, K = 128 + 512
-    # concatenated, first: it leads the kernel's row)
+    # concatenated, first: it leads the kernel's row), in the paper's 10
+    # mantissa bits; merge1_c1 also in 15 (the hi + lo instances), second
     k2 = sorted(engine.k2_shapes(BATCH), key=lambda s: s[0] != "merge1_c1")
     if len(k2) != 7:
         fail(f"expected the 7 1x1 convs of VGG-16 PixelLink, got {k2}")
@@ -387,29 +408,37 @@ def phase_kernels(torch, np, profile=False):
     for name, M, K, N in k2:
         a = torch.relu(torch.randn((M, K), generator=gen)).to(dev)
         bm = (torch.randn((K, N), generator=gen) * (2.0 / K) ** 0.5).to(dev)
-        ops = quantize_operands(a, bm)
-        got = bfp_matmul_quantized(*ops)
-        torch.cuda.synchronize()
-        want = bfp_matmul_quantized_plain(*(t.cpu() for t in ops),
-                                          block_size=32, mantissa_bits=10)
-        err = float((got.cpu() - want).abs().max())
-        if not torch.allclose(got.cpu(), want, atol=1e-4, rtol=1e-4):
-            fail(f"K2 {name}: kernel differs from plain (max abs {err})")
-        a_deq = _dequantize(ops[0], ops[1], 32, 10)
-        b_deq = _dequantize(ops[2].t(), ops[3], 32, 10).t().contiguous()
-        t = time_row(torch, lambda: bfp_matmul_quantized(*ops),
-                     lambda: bfp_matmul_quantized_plain(
-                         *ops, block_size=32, mantissa_bits=10),
-                     lambda: torch.matmul(a_deq, b_deq))
-        bms, by = bound(nbytes(*ops, got), 2.0 * M * K * N, TF32_PEAK)
-        shapes.append(dict(shape=f"{name} M={M} K={K} N={N}",
-                           max_abs_err=err, **t, bound_ms=bms, bound_by=by))
-        log(f"K2 {name}: M={M} K={K} N={N} max_abs_err={err:.3g} "
-            f"{fmt_times(t, 'matmul')} bound {bms:.4f} ms ({by})")
-        if profile and name in ("merge1_c1", "head_logits"):
-            profile_calls(torch, [
-                (f"K2 {name}", lambda: bfp_matmul_quantized(*ops)),
-                (f"torch.matmul {name}", lambda: torch.matmul(a_deq, b_deq))])
+        for bits in (10, 15) if name == "merge1_c1" else (10,):
+            geo = dict(block_size=32, mantissa_bits=bits)
+            ops = quantize_operands(a, bm, **geo)
+            got = bfp_matmul_quantized(*ops, **geo)
+            torch.cuda.synchronize()
+            want = bfp_matmul_quantized_plain(*(t.cpu() for t in ops), **geo)
+            err = float((got.cpu() - want).abs().max())
+            if not torch.allclose(got.cpu(), want, atol=1e-4, rtol=1e-4):
+                fail(f"K2 {name} {bits} bits: kernel differs from plain "
+                     f"(max abs {err})")
+            a_deq = _dequantize(ops[0], ops[1], 32, bits)
+            b_deq = _dequantize(ops[2].t(), ops[3], 32, bits).t().contiguous()
+            t = time_row(torch, lambda: bfp_matmul_quantized(*ops, **geo),
+                         lambda: bfp_matmul_quantized_plain(*ops, **geo),
+                         lambda: torch.matmul(a_deq, b_deq))
+            # above 10 bits each product is three TF32 products (hi + lo)
+            terms = 3 if bits > 10 else 1
+            bms, by = bound(nbytes(*ops, got), terms * 2.0 * M * K * N,
+                            TF32_PEAK)
+            shapes.append(dict(
+                shape=f"{name} M={M} K={K} N={N} mantissa_bits={bits}",
+                max_abs_err=err, **t, bound_ms=bms, bound_by=by))
+            log(f"K2 {name} {bits} bits: M={M} K={K} N={N} max_abs_err="
+                f"{err:.3g} {fmt_times(t, 'matmul')} bound {bms:.4f} ms "
+                f"({by})")
+            if profile and name in ("merge1_c1", "head_logits"):
+                profile_calls(torch, [
+                    (f"K2 {name} {bits} bits",
+                     lambda: bfp_matmul_quantized(*ops, **geo)),
+                    (f"torch.matmul {name}",
+                     lambda: torch.matmul(a_deq, b_deq))])
     rows["bfp_matmul_quantized"] = shapes
 
     # K3 at (2, 128, 128), 32x32 tiles, on k3_inputs' batches; the
@@ -657,16 +686,37 @@ def phase_model(torch, np, profile=False):
 # phase 3: serving
 # ---------------------------------------------------------------------------
 
-def phase_serving(torch, np):
+def _box_keys(out):
+    return [[(b["label"], b["box"], b["area"]) for b in r] for r in out]
+
+
+def _checked_launches(kernels, n_batches: int, what: str) -> dict:
+    """The counts since the last reset must be one engine forward per
+    batch: K1 17, K2 7 and K3 1 each time."""
+    launches = kernels.launch_counts()
+    want = dict.fromkeys(launches, 0)
+    want.update(winograd_tiles=17 * n_batches,
+                bfp_matmul_quantized=7 * n_batches,
+                local_spread_converge=n_batches)
+    if launches != want:
+        fail(f"{what}: launches {launches} != {want} for {n_batches} "
+             f"batches")
+    return launches
+
+
+def phase_serving(torch, np, profile=False):
     from repro_torch import kernels
     from repro_torch.data.images import RequestStream
     from repro_torch.launch.serve import STDService
 
-    svc = STDService(width=1.0, precision="bfp", buckets=(128, 256, 512),
-                     merge_ch=(128, 64, 32), device="cuda")
+    geo = dict(width=1.0, precision="bfp", buckets=(128, 256, 512),
+               merge_ch=(128, 64, 32), device="cuda")
+    svc = STDService(**geo)
     stream = list(RequestStream(6, seed=0,
                                 hw_range=((256, 512), (256, 512))))
+    images = [req["image"] for req in stream]
     kernels.reset_launch_counts()
+    host = []
     for i, req in enumerate(stream):
         boxes = svc(req["image"])
         h, w = req["hw"]
@@ -674,14 +724,119 @@ def phase_serving(torch, np):
             x0, y0, x1, y1 = b["box"]
             if not (0 <= x0 <= x1 < w // 4 and 0 <= y0 <= y1 < h // 4):
                 fail(f"request {i}: box {b['box']} outside {req['hw']}")
+        host.append(boxes)
         log(f"request {i} {req['hw']}: {len(boxes)} boxes, "
             f"{svc.stats['latency_s'][-1] * 1e3:.2f} ms")
-    launches = kernels.launch_counts()
-    if min(launches[k] for k in FCN_KERNELS) < len(stream):
-        fail(f"serving did not run every kernel per request: {launches}")
+    _checked_launches(kernels, len(stream), "host route, 6 requests")
     lat = svc.stats["latency_s"]
-    log(f"serving: 6 requests, median latency "
-        f"{statistics.median(lat) * 1e3:.2f} ms, launches {launches}")
+    log(f"serving (host route): 6 requests, median latency "
+        f"{statistics.median(lat) * 1e3:.2f} ms")
+
+    # the device box tail, pipelined and micro-batched serving, with the
+    # same seeded weights
+    dev = STDService(**geo, postprocess="device", max_batch=4,
+                     max_wait_ms=5, inflight=1,
+                     params=svc.factory.params(HW, "f32"))
+    kernels.reset_launch_counts()
+    got = [dev(img) for img in images]
+    _checked_launches(kernels, len(images), "device route, 6 requests")
+    if _box_keys(got) != _box_keys(host):
+        fail("(a) device-route boxes differ from the host route's")
+    log("(a) device route, 6 requests one by one: boxes equal the host "
+        "route's")
+
+    x, valid, _ = dev.preprocess(images[3])
+    labels = dev.dispatch_labels(x[None], [valid])[0]
+    torch.cuda.synchronize()
+    fn = dev.factory.boxes_fn(x.shape[:2], 1, dev.boxes_capacity)
+    torch.cuda.set_sync_debug_mode("error")
+    rows, counts = fn(labels)
+    torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    cpu_rows, cpu_counts = fn(labels.cpu())
+    if not (torch.equal(rows.cpu(), cpu_rows)
+            and torch.equal(counts.cpu(), cpu_counts)):
+        fail("(b) boxes_fn rows on the card differ from its CPU run")
+    log(f"(b) boxes_fn on the card under sync debug mode 'error': no sync, "
+        f"rows {tuple(rows.shape)} bit-equal to the CPU run, "
+        f"{int(cpu_counts[0])} components")
+
+    if _box_keys(dev.serve_pipelined(images)) != _box_keys(host):
+        fail("(c) pipelined boxes differ from the host route's")
+    log("(c) serve_pipelined, 6 requests: boxes equal")
+
+    many = RequestStream(24, seed=1,
+                         hw_range=((256, 512), (256, 512))).images()
+    t0 = time.perf_counter()
+    seq = [dev(img) for img in many]
+    seq_ips = len(many) / (time.perf_counter() - t0)
+    pipe = dev.serve_pipelined(many)
+    if _box_keys(pipe) != _box_keys(seq):
+        fail("pipelined boxes of the 24 requests differ from sequential")
+    kernels.reset_launch_counts()
+    batched = dev.serve_batched(many)
+    batches = dev.stats["batching"]["batches"]
+    launches = _checked_launches(kernels, len(batches),
+                                 "serve_batched, 24 requests")
+    sizes = [b["n"] for b in batches]
+    mean_batch = sum(sizes) / len(sizes)
+    if _box_keys(batched) != _box_keys(seq):
+        fail("(d) batched boxes differ from sequential serving")
+    if mean_batch <= 1:
+        fail(f"(d) no batching happened: batch sizes {sizes}")
+    log(f"(d) serve_batched, 24 requests: boxes equal sequential, "
+        f"{len(batches)} batches of {sizes} (mean {mean_batch:.2f}), "
+        f"launches {launches}")
+    batched_first = dev.stats["batched_tps"]
+    dev.serve_batched(many)             # every engine built: warm
+    if profile:
+        # one engine step with the device box tail and the copy to the
+        # host, at batch 1 and at batch 4, in the 512x512 bucket
+        pads = [dev.preprocess(img)[:2] for img in many]
+        pads = [p for p in pads if p[0].shape[:2] == (512, 512)][:4]
+        for b in (1, 4):
+            stack = np.stack([p[0] for p in pads[:b]])
+            valids = [p[1] for p in pads[:b]]
+            profile_step(torch, lambda: dev._finalize(
+                dev._dispatch(stack, valids)),
+                what=f"serving step, device route, batch {b} at 512x512")
+    warm = dev.stats["batched_latency_s"]
+    snap = dev.metrics_snapshot()
+    log(f"STD serving at width 1.0, bfp, device route, 24 requests of "
+        f"256-512 px: sequential {seq_ips:.2f} images/s, pipelined "
+        f"{dev.stats['pipelined_tps']:.2f} images/s, batched "
+        f"{dev.stats['batched_tps']:.2f} images/s (first run, engines "
+        f"built on the way: {batched_first:.2f}), max_batch 4, "
+        f"max_wait_ms 5, inflight 1, mean batch {mean_batch:.2f}")
+    log(f"request latency p50/p99 from metrics_snapshot() (sequential "
+        f"requests): {snap['std_request_latency_p50_ms']:.2f} / "
+        f"{snap['std_request_latency_p99_ms']:.2f} ms; batched (warm run, "
+        f"submit to result): {np.percentile(warm, 50) * 1e3:.2f} / "
+        f"{np.percentile(warm, 99) * 1e3:.2f} ms; metrics_prometheus() "
+        f"{len(dev.metrics_prometheus().splitlines())} lines")
+
+    # (e) a capacity of 1 overflows on a multi-component request
+    i = max(range(len(host)), key=lambda k: len(host[k]))
+    if len(host[i]) < 2:
+        fail("(e) no multi-component request to overflow")
+    capacity, dev.boxes_capacity = dev.boxes_capacity, 1
+    before = dev.stats["pp_overflow"]
+    fell_back = dev(images[i])
+    dev.boxes_capacity = capacity
+    n_over = dev.stats["pp_overflow"] - before
+    if _box_keys([fell_back]) != _box_keys([host[i]]) or n_over != 1 \
+            or dev.book.counter("pp_overflow") != dev.stats["pp_overflow"]:
+        fail(f"(e) overflow fallback: {n_over} counted, boxes equal "
+             f"{_box_keys([fell_back]) == _box_keys([host[i]])}")
+    log(f"(e) boxes_capacity=1 on request {i} ({len(host[i])} boxes): "
+        f"fell back to the label map, boxes equal, pp_overflow +1")
+
+    mem = dev.measure_engine_memory((512, 512), 4)
+    log(f"(f) engine memory at 512x512, batch 4: measured peak "
+        f"{mem['peak_bytes'] / 2**20:.1f} MiB (arguments "
+        f"{mem['argument_bytes'] / 2**20:.1f} MiB, temp "
+        f"{mem['temp_bytes'] / 2**20:.1f} MiB) against the planned "
+        f"activation peak {mem['planned_peak_bytes'] / 2**20:.1f} MiB")
 
 
 # ---------------------------------------------------------------------------
@@ -909,7 +1064,7 @@ def main() -> None:
     rows = phase_kernels(torch, np, profile=profile)
     rows.update(phase_lm_kernels(torch, profile=profile))
     fcn = phase_model(torch, np, profile=profile)
-    phase_serving(torch, np)
+    phase_serving(torch, np, profile=profile)
     lm = phase_lm_serving(torch, profile=profile)
     phase_lm_parity(torch)
     launches = {k: fcn[k] for k in FCN_KERNELS}

@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
-"""Time K3 and K4's f32 kernel of one checkout on chip_smoke.py's phase-1
-inputs, so that two trees can be compared in one call on one card.
+"""Time K2 (10 mantissa bits, at merge1_c1 and head_logits), K3 and K4's
+f32 kernel of one checkout on chip_smoke.py's phase-1 inputs, so that two
+trees can be compared in one call on one card.
 
     python3 scripts/kernel_compare.py [--tree DIR]
 
 ``--tree`` names the root of the checkout whose ``src/repro_torch`` is
 timed (default: this one); its kernels build into its own ``build/``.
 Run each tree in its own process, in turns (parent, change, change,
-parent).  The inputs are built by this checkout's ``chip_smoke.k3_inputs``
+parent).  K2's operands are seeded here (unit activations after ReLU,
+He weights, as in chip_smoke) and quantized by the timed tree.  The other
+inputs are built by this checkout's ``chip_smoke.k3_inputs``
 (the synthetic maps and the serpentine batch, 32x32 tiles) and
 ``chip_smoke.k4_inputs`` (the f32 rows of ``K4_CASES``).  The script only
 times, by chip_smoke's two methods (``ms``: events around each call on an
@@ -43,6 +46,8 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
     from repro_torch.core import resolve_device
+    from repro_torch.kernels.bfp_matmul import (bfp_matmul_quantized,
+                                                quantize_operands)
     from repro_torch.kernels.cc_label import local_spread_converge
     from repro_torch.kernels.flash_attention import flash_attention_padded
 
@@ -52,6 +57,14 @@ def main():
                          text=True).stdout.strip()
     print(f"tree {tree}: {smi}", flush=True)
     calls = {}
+    gen = torch.Generator().manual_seed(2)
+    for name, M, K, N in (("merge1_c1", 2048, 640, 128),
+                          ("head_logits", 32768, 32, 9)):
+        a = torch.relu(torch.randn((M, K), generator=gen)).to(dev)
+        b = (torch.randn((K, N), generator=gen) * (2.0 / K) ** 0.5).to(dev)
+        ops = quantize_operands(a, b)
+        calls[f"K2 {name} 10 bits"] = (
+            lambda o=ops: bfp_matmul_quantized(*o))
     k3 = chip_smoke.k3_inputs(torch, cc_cases)
     for name in ("synthetic", "serpentine"):
         args = [t.to(dev) for t in k3[name]]

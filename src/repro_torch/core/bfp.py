@@ -37,6 +37,17 @@ class BFPTensor:
     block_size: int
     axis: int
 
+    @property
+    def shape(self):
+        return self.mantissa.shape
+
+    def nbytes_model(self) -> int:
+        """Modelled storage: 1, 2 or 4 bytes a mantissa (up to 7, 15 or
+        more bits) and 1 byte an exponent."""
+        mbytes = 1 if self.mantissa_bits <= 7 else (
+            2 if self.mantissa_bits <= 15 else 4)
+        return int(self.mantissa.numel() * mbytes + self.exponent.numel())
+
 
 def exp2i(e: torch.Tensor) -> torch.Tensor:
     """EXACT 2**e for integer e, built in the f32 exponent field (never
@@ -107,3 +118,50 @@ def roundtrip(x: torch.Tensor, *, block_size: int = DEFAULT_BLOCK,
         x, block_size=block_size, mantissa_bits=mantissa_bits, axis=axis,
         rounding=rounding,
     )).to(x.dtype)
+
+
+def quantization_error(x: torch.Tensor, **kw) -> torch.Tensor:
+    """Mean relative error that the BFP roundtrip introduces."""
+    y = roundtrip(x, **kw)
+    denom = torch.clamp(x.abs(), min=1e-12)
+    return torch.mean((x - y).abs() / denom)
+
+
+def bfp_matmul_reference(a: torch.Tensor, b: torch.Tensor, *,
+                         block_size: int = DEFAULT_BLOCK,
+                         mantissa_bits: int = DEFAULT_MANTISSA,
+                         rounding: str = "trunc",
+                         wide_accum: bool = True) -> torch.Tensor:
+    """C = A @ B with A (M, K) and B (K, N) quantized along K.  Within a
+    block the mantissa dot is exact; across blocks the scaled partial sums
+    accumulate in f32 (the wide accumulator of §IV.C).  With
+    ``wide_accum=False`` every running partial sum is truncated back to
+    ``mantissa_bits`` (one block per row of C), the failure mode the
+    paper's Fig. 7 fixes."""
+    qa = quantize(a, block_size=block_size, mantissa_bits=mantissa_bits,
+                  axis=-1, rounding=rounding)
+    qb = quantize(b, block_size=block_size, mantissa_bits=mantissa_bits,
+                  axis=0, rounding=rounding)
+    M, K = a.shape
+    if b.shape[0] != K:
+        raise ValueError(f"bfp_matmul_reference: shapes {tuple(a.shape)} "
+                         f"{tuple(b.shape)}")
+    N = b.shape[1]
+    nb = -(-K // block_size)
+    pad = nb * block_size - K
+    ma = torch.nn.functional.pad(qa.mantissa, (0, pad)).reshape(
+        M, nb, block_size)
+    mb = torch.nn.functional.pad(qb.mantissa, (0, 0, 0, pad)).reshape(
+        nb, block_size, N)
+    partial = torch.einsum("mkb,kbn->kmn", ma.to(torch.float32),
+                           mb.to(torch.float32))            # (nb, M, N)
+    scale = exp2i(qa.exponent.t()[:, :, None] + qb.exponent.t()[:, None, :]
+                  - 2 * mantissa_bits)                      # (nb, M, N)
+    contrib = partial * scale
+    if wide_accum:
+        return contrib.sum(dim=0)
+    out = torch.zeros((M, N), dtype=torch.float32, device=a.device)
+    for c in contrib:
+        out = roundtrip(out + c, block_size=N, mantissa_bits=mantissa_bits,
+                        axis=-1, rounding="trunc")
+    return out

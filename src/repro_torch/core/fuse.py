@@ -81,7 +81,15 @@ def conv2d_nhwc(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
                 padding="SAME", groups: int = 1) -> torch.Tensor:
     """NHWC x HWIO convolution with XLA padding semantics.  ``padding``
     is ``"SAME"``, ``"VALID"`` or explicit ``((h_lo, h_hi), (w_lo,
-    w_hi))``."""
+    w_hi))``.
+
+    On the card the images go through cuDNN one at a time: cuDNN picks
+    its algorithm from the whole input shape, the batch included, and the
+    algorithms round differently, so a batched call could give an image
+    other bits than serving it alone."""
+    if x.device.type == "cuda" and x.shape[0] > 1:
+        return torch.cat([conv2d_nhwc(x[i:i + 1], w, stride, padding, groups)
+                          for i in range(x.shape[0])])
     kh, kw = w.shape[:2]
     if padding == "SAME":
         x = _pad_same_nhwc(x, kh, kw, stride)

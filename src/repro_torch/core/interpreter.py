@@ -184,7 +184,9 @@ class FCNEngine:
         if self._runs_k2(mc, spec):
             # a 1x1 conv is a matmul: K2 quantizes both operands along the
             # contraction dim (activations along channels, weights along
-            # Cin, the same blocking as the roundtrip below)
+            # Cin, the same blocking as the roundtrip below); the K split
+            # is chosen for one image, so every batch size gives an image
+            # the same bits
             from repro_torch.kernels.bfp_matmul import bfp_matmul
 
             n, hh, ww, cin = x.shape
@@ -193,7 +195,7 @@ class FCNEngine:
                 w.to(torch.float32).reshape(cin, -1),
                 block_size=self.bfp.block_size,
                 mantissa_bits=self.bfp.mantissa_bits,
-                rounding=self.bfp.rounding,
+                rounding=self.bfp.rounding, split_rows=hh * ww,
             ).reshape(n, hh, ww, -1)
             return fuse.conv_epilogue(y, b, relu)
         if self.bfp is not None:

@@ -132,7 +132,12 @@ def tiles_to_nhwc(y: torch.Tensor, n: int, th: int, tw: int, out_h: int,
 def winograd_conv2d(x: torch.Tensor, w: torch.Tensor,
                     padding: str = "SAME") -> torch.Tensor:
     """Stride-1 3x3 convolution via F(4x4, 3x3) in plain torch ops.
-    x: (N, H, W, Cin) NHWC; w: (3, 3, Cin, Cout) HWIO."""
+    x: (N, H, W, Cin) NHWC; w: (3, 3, Cin, Cout) HWIO.  On the card the
+    images go one at a time: cuBLAS picks the product's kernel from its
+    row count, so a batch could give an image other bits than alone."""
+    if x.device.type == "cuda" and x.shape[0] > 1:
+        return torch.cat([winograd_conv2d(x[i:i + 1], w, padding)
+                          for i in range(x.shape[0])])
     n, _, _, cin = x.shape
     if tuple(w.shape[:3]) != (3, 3, cin):
         raise ValueError(f"3x3 kernel over {cin} channels expected, got "

@@ -19,8 +19,16 @@
 // one, so the f32 bit patterns are valid TF32 unchanged (their low 13
 // bits are zero), every product of two of them (at most 22 bits) is
 // exact in f32, and the result differs from the f32 CUDA-core version only
-// by the order of the f32 sums.  The kernel takes mantissa_bits <= 10,
-// the paper's and every main path's width; the wrapper raises above it.
+// by the order of the f32 sums.  That is the paper's and every main
+// path's width (mantissa_bits <= 10).
+//
+// Wider mantissas, 11-15 bits (the reference's int16 range), take the
+// template flag X3: |m| <= 2^15 leaves at most 16 significant bits, so
+// tf32x3.cuh's truncating split gives hi (the top 11 bits) and lo (the
+// remaining 5 or fewer), each exact in TF32, and the three-product sum
+// hi*lo + lo*hi + hi*hi of K1 and K5 drops only lo*lo, below 2^-20 of the
+// product.  The split happens where a fragment is read, so the 10-bit
+// instances (X3 false) compile to the same code as before.
 //
 // What bounds it on an H100: bytes and fill.  merge1_c1 of a 512x512
 // batch of 2 (M 2,048, K 640, N 128) is 335 MFLOP, 0.7 us at the 495
@@ -62,7 +70,9 @@ namespace {
 using tf32x3::cp_async16;
 using tf32x3::cp_async_commit;
 using tf32x3::mma;
+using tf32x3::mma3;
 using tf32x3::smem_u32;
+using tf32x3::split;
 
 constexpr int TK = 32;          // K per step: four k8 MMA steps
 constexpr int STAGES = 2;       // mantissa tiles: double-buffered
@@ -108,8 +118,9 @@ __host__ __device__ constexpr size_t smem_bytes(int tm, int tn, int kb) {
 }
 
 // One block per (TM x TN tile, K split); the S splits of a tile form a
-// cluster along z and add their partial tiles in rank order.
-template <int TM, int TN, int WM, int S>
+// cluster along z and add their partial tiles in rank order.  X3: each
+// operand enters as hi + lo TF32 terms (mantissa_bits 11-15).
+template <int TM, int TN, int WM, int S, bool X3>
 __global__ void __launch_bounds__(THREADS)
 bfp_matmul_kernel(const int16_t* __restrict__ ma, const int* __restrict__ ea,
                   const int16_t* __restrict__ mb, const int* __restrict__ eb,
@@ -248,24 +259,47 @@ bfp_matmul_kernel(const int16_t* __restrict__ ma, const int* __restrict__ ea,
 #pragma unroll
     for (int k8 = 0; k8 < TK; k8 += 8) {
       uint32_t a[MI][4], b[NI][2];
+      if constexpr (!X3) {
 #pragma unroll
-      for (int i = 0; i < MI; ++i) {
-        const float* p = af + (wm * WTM + i * 16 + g) * LDF + k8 + tq;
-        a[i][0] = __float_as_uint(p[0]);
-        a[i][1] = __float_as_uint(p[8 * LDF]);
-        a[i][2] = __float_as_uint(p[4]);
-        a[i][3] = __float_as_uint(p[8 * LDF + 4]);
+        for (int i = 0; i < MI; ++i) {
+          const float* p = af + (wm * WTM + i * 16 + g) * LDF + k8 + tq;
+          a[i][0] = __float_as_uint(p[0]);
+          a[i][1] = __float_as_uint(p[8 * LDF]);
+          a[i][2] = __float_as_uint(p[4]);
+          a[i][3] = __float_as_uint(p[8 * LDF + 4]);
+        }
+#pragma unroll
+        for (int j = 0; j < NI; ++j) {
+          const float* p = bt + (wn * WTN + j * 8 + g) * LDF + k8 + tq;
+          b[j][0] = __float_as_uint(p[0]);
+          b[j][1] = __float_as_uint(p[4]);
+        }
+#pragma unroll
+        for (int i = 0; i < MI; ++i)
+#pragma unroll
+          for (int j = 0; j < NI; ++j) mma(acc[i][j], a[i], b[j]);
+      } else {
+        uint32_t al[MI][4], bl[NI][2];
+#pragma unroll
+        for (int i = 0; i < MI; ++i) {
+          const float* p = af + (wm * WTM + i * 16 + g) * LDF + k8 + tq;
+          split(p[0], a[i][0], al[i][0]);
+          split(p[8 * LDF], a[i][1], al[i][1]);
+          split(p[4], a[i][2], al[i][2]);
+          split(p[8 * LDF + 4], a[i][3], al[i][3]);
+        }
+#pragma unroll
+        for (int j = 0; j < NI; ++j) {
+          const float* p = bt + (wn * WTN + j * 8 + g) * LDF + k8 + tq;
+          split(p[0], b[j][0], bl[j][0]);
+          split(p[4], b[j][1], bl[j][1]);
+        }
+#pragma unroll
+        for (int i = 0; i < MI; ++i)
+#pragma unroll
+          for (int j = 0; j < NI; ++j)
+            mma3(acc[i][j], a[i], al[i], b[j], bl[j]);
       }
-#pragma unroll
-      for (int j = 0; j < NI; ++j) {
-        const float* p = bt + (wn * WTN + j * 8 + g) * LDF + k8 + tq;
-        b[j][0] = __float_as_uint(p[0]);
-        b[j][1] = __float_as_uint(p[4]);
-      }
-#pragma unroll
-      for (int i = 0; i < MI; ++i)
-#pragma unroll
-        for (int j = 0; j < NI; ++j) mma(acc[i][j], a[i], b[j]);
     }
   }
 
@@ -317,7 +351,7 @@ bfp_matmul_kernel(const int16_t* __restrict__ ma, const int* __restrict__ ea,
   cluster_sync();
 }
 
-template <int TM, int TN, int WM, int S>
+template <int TM, int TN, int WM, int S, bool X3>
 int launch(const int16_t* ma, const int* ea, const int16_t* mb, const int* eb,
            float* out, int M, int N, int K, int block_size, int mantissa_bits,
            cudaStream_t stream) {
@@ -327,7 +361,7 @@ int launch(const int16_t* ma, const int* ea, const int16_t* mb, const int* eb,
   static size_t configured = 0;     // the largest size set so far
   cudaError_t err;
   if (smem > configured) {
-    err = cudaFuncSetAttribute(bfp_matmul_kernel<TM, TN, WM, S>,
+    err = cudaFuncSetAttribute(bfp_matmul_kernel<TM, TN, WM, S, X3>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return (int)err;
@@ -345,8 +379,9 @@ int launch(const int16_t* ma, const int* ea, const int16_t* mb, const int* eb,
   cluster.val.clusterDim.z = S;
   cfg.attrs = &cluster;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, bfp_matmul_kernel<TM, TN, WM, S>, ma, ea, mb,
-                           eb, out, M, N, K, KB, block_size, mantissa_bits);
+  err = cudaLaunchKernelEx(&cfg, bfp_matmul_kernel<TM, TN, WM, S, X3>, ma,
+                           ea, mb, eb, out, M, N, K, KB, block_size,
+                           mantissa_bits);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -354,20 +389,25 @@ int launch(const int16_t* ma, const int* ea, const int16_t* mb, const int* eb,
 }  // namespace
 
 // tile_m x tile_n is one of the instantiated tiles and splits one of
-// 1, 2, 4, 8 (bfp_matmul/ops.py:launch_shape); mantissa_bits above 10 is
-// refused (TF32 would not be exact)
+// 1, 2, 4, 8 (bfp_matmul/ops.py:launch_shape); mantissa_bits above 10 take
+// the hi + lo instances, above 15 (int16's range) are refused
 extern "C" int bfp_matmul_f32(const int16_t* ma, const int* ea,
                               const int16_t* mb, const int* eb, float* out,
                               int M, int N, int K, int block_size,
                               int mantissa_bits, int tile_m, int tile_n,
                               int splits, cudaStream_t stream) {
   if (M < 1 || N < 1 || K < 1 || block_size < 1 || mantissa_bits < 0 ||
-      mantissa_bits > 10)
+      mantissa_bits > 15)
     return (int)cudaErrorInvalidValue;
+  const bool x3 = mantissa_bits > 10;
 #define BFP_SPLIT(TM, TN, WM, S)                                          \
   if (tile_m == TM && tile_n == TN && splits == S)                        \
-    return launch<TM, TN, WM, S>(ma, ea, mb, eb, out, M, N, K, block_size,\
-                                 mantissa_bits, stream);
+    return x3 ? launch<TM, TN, WM, S, true>(ma, ea, mb, eb, out, M, N, K, \
+                                            block_size, mantissa_bits,    \
+                                            stream)                       \
+              : launch<TM, TN, WM, S, false>(ma, ea, mb, eb, out, M, N, K,\
+                                             block_size, mantissa_bits,   \
+                                             stream);
 #define BFP_TILE(TM, TN, WM)                                              \
   BFP_SPLIT(TM, TN, WM, 1)                                                \
   BFP_SPLIT(TM, TN, WM, 2)                                                \

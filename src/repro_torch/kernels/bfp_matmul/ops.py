@@ -6,7 +6,9 @@ block is zero-padded exactly as the reference's ``_blockify``), then
 :func:`bfp_matmul_quantized` dequantizes and multiplies.  On a CUDA
 tensor that launches ``csrc/bfp_matmul.cu``; on a CPU tensor it runs
 :func:`bfp_matmul_quantized_plain`.  Mantissas travel as int16, which
-holds any ``mantissa_bits`` up to 15.
+holds any ``mantissa_bits`` up to 15.  The kernel multiplies on the
+TF32 tensor cores: up to 10 bits each dequantized operand is exact in one
+TF32 term, and 11-15 bits enter as hi + lo terms (three products each).
 """
 from __future__ import annotations
 
@@ -20,18 +22,24 @@ MAX_SPLITS = 8              # K splits of one tile: a cluster of blocks
 TK = 32                     # K per step of the kernel
 STAGES = 2                  # mantissa tiles in flight
 SMEM_MAX = 232448           # shared memory a block may use
-MAX_TF32_MANTISSA = 10      # above it TF32 is no longer taken as exact
+MAX_MANTISSA = 15           # int16 mantissas
 
 
-def launch_shape(M: int, N: int, K: int) -> tuple:
+def launch_shape(M: int, N: int, K: int, split_rows: int = 0) -> tuple:
     """(tile rows, tile columns, K splits) of the kernel for an (M, K) x
     (K, N) product.  The tile is 64 x 64, or 64 x 32 for N <= 32, or
     128 x 16 for N <= 16, so that few columns are masked; the K range is
     split (a power of two up to 8, each split keeping at least one K
-    step) until the grid has :data:`MIN_BLOCKS` blocks."""
+    step) until the grid has :data:`MIN_BLOCKS` blocks.
+
+    The K split fixes the order of each output's f32 sum, and every row
+    is summed alone, so a row's result depends on N, K and the split, not
+    on M.  ``split_rows`` (0: M) counts the tiles for the split from that
+    many rows instead: the engine passes one image's rows, so an image
+    gets the same bits at every batch size."""
     tn = 64 if N > 32 else 32 if N > 16 else 16
     tm = 128 if tn == 16 else 64
-    tiles = -(-M // tm) * -(-N // tn)
+    tiles = -(-(split_rows or M) // tm) * -(-N // tn)
     steps = -(-K // TK)
     splits = 1
     while (splits < MAX_SPLITS and tiles * splits < MIN_BLOCKS
@@ -67,10 +75,10 @@ def bfp_matmul_quantized_plain(ma, ea, mb, eb, *, block_size: int,
 def bfp_matmul_quantized(ma: torch.Tensor, ea: torch.Tensor,
                          mb: torch.Tensor, eb: torch.Tensor, *,
                          block_size: int = bfp_lib.DEFAULT_BLOCK,
-                         mantissa_bits: int = bfp_lib.DEFAULT_MANTISSA
-                         ) -> torch.Tensor:
+                         mantissa_bits: int = bfp_lib.DEFAULT_MANTISSA,
+                         split_rows: int = 0) -> torch.Tensor:
     """mA (M, K) int16, eA (M, KB) int32, mB (K, N) int16, eB (N, KB)
-    int32 -> (M, N) f32."""
+    int32 -> (M, N) f32.  ``split_rows``: see :func:`launch_shape`."""
     M, K = ma.shape
     N = mb.shape[1]
     kb = -(-K // block_size)
@@ -85,13 +93,11 @@ def bfp_matmul_quantized(ma: torch.Tensor, ea: torch.Tensor,
             mantissa_bits=mantissa_bits)
     if ma.device.type != "cuda":
         raise ValueError(f"bfp_matmul: unsupported device {ma.device}")
-    if not 0 <= mantissa_bits <= MAX_TF32_MANTISSA:
+    if not 0 <= mantissa_bits <= MAX_MANTISSA:
         raise ValueError(
-            f"bfp_matmul kernel takes mantissa_bits <= {MAX_TF32_MANTISSA} "
-            f"(the paper's width), got {mantissa_bits}: it multiplies in "
-            f"TF32 on the tensor cores, and the exactness of the "
-            f"dequantized operands there is held only up to that width")
-    tm, tn, splits = launch_shape(M, N, K)
+            f"bfp_matmul kernel takes mantissa_bits <= {MAX_MANTISSA} "
+            f"(int16 mantissas), got {mantissa_bits}")
+    tm, tn, splits = launch_shape(M, N, K, split_rows)
     if smem_bytes(tm, tn, kb) > SMEM_MAX:
         raise ValueError(f"bfp_matmul kernel: {kb} exponent blocks along K "
                          f"do not fit in shared memory (block_size "
@@ -119,7 +125,7 @@ def quantize_operands(a: torch.Tensor, b: torch.Tensor, *,
                       mantissa_bits: int = bfp_lib.DEFAULT_MANTISSA,
                       rounding: str = "trunc"):
     """A (M, K) and B (K, N) -> (mA, eA, mB, eB) in the kernel's types."""
-    if mantissa_bits > 15:
+    if mantissa_bits > MAX_MANTISSA:
         raise ValueError("int16 mantissas hold at most 15 mantissa bits")
     qa = bfp_lib.quantize(a, block_size=block_size,
                           mantissa_bits=mantissa_bits, axis=-1,
@@ -136,10 +142,11 @@ def quantize_operands(a: torch.Tensor, b: torch.Tensor, *,
 def bfp_matmul(a: torch.Tensor, b: torch.Tensor, *,
                block_size: int = bfp_lib.DEFAULT_BLOCK,
                mantissa_bits: int = bfp_lib.DEFAULT_MANTISSA,
-               rounding: str = "trunc") -> torch.Tensor:
+               rounding: str = "trunc", split_rows: int = 0) -> torch.Tensor:
     """C = A @ B through shared-exponent BFP (A: (M, K), B: (K, N))."""
     ma, ea, mb, eb = quantize_operands(
         a, b, block_size=block_size, mantissa_bits=mantissa_bits,
         rounding=rounding)
     return bfp_matmul_quantized(ma, ea, mb, eb, block_size=block_size,
-                                mantissa_bits=mantissa_bits)
+                                mantissa_bits=mantissa_bits,
+                                split_rows=split_rows)

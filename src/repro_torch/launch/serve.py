@@ -1,33 +1,75 @@
 """STD serving: bucketed scene-text detection requests through the
-microcode FCN engine, image to boxes.
+microcode FCN engine, image to boxes, on one device.
 
 A request goes through :meth:`STDService.preprocess` (transpose trick for
 over-wide images, padding to a resolution bucket), :meth:`_dispatch`
-(batch rounding, the engine of ``EngineFactory`` for the bucket: FCN
-forward + CC labelling on the service's device), :meth:`_finalize` (the
-label maps to the host) and :meth:`postprocess` (host box extraction).
+(batch rounding, the bucket's engine from ``EngineFactory``: FCN forward
+and CC labelling on the service's device, and with
+``postprocess="device"`` the compact box tail on the same labels),
+:meth:`_finalize` (the results to the host) and :meth:`postprocess` (the
+boxes).  Three serving modes, as in the JAX package:
 
-This slice ports the single-device, sequential path.  Micro-batched and
-pipelined serving, the cost-model planner, multi-device plans, the
-device-side box tail, telemetry and memory-budget batch caps are not
-ported yet: asking for any of them raises ``NotImplementedError``.
+  * sequential: ``svc(image)``;
+  * pipelined (paper C4): :meth:`serve_pipelined` overlaps preprocess,
+    device inference and box postprocess of consecutive images on host
+    threads (``runtime/pipeline.HostPipeline``);
+  * micro-batched: :meth:`start_batched` / :meth:`submit` /
+    :meth:`serve_batched` group requests by bucket in
+    ``launch/batching.MicroBatcher``, which flushes on ``max_batch`` or
+    ``max_wait_ms``, applies admission control (``max_pending``,
+    ``admission``) and keeps up to ``inflight`` dispatched batches
+    between its dispatch and completion threads.
+
+Boxes come from either tail: ``postprocess="host"`` copies each label map
+to the host and extracts boxes there; ``"device"`` compacts each map into
+``(boxes_capacity + 1, 6)`` rows on the device, so only a few hundred
+bytes per image cross to the host, and an image with more components than
+the capacity falls back to its label map (counted in
+``stats["pp_overflow"]``, never wrong).
+
+On the card, the dispatch adds no host sync of its own: images cross in
+pinned memory, the box tail is torch ops, and an event recorded after the
+batch's work lets the completion thread copy the results on a side stream
+as soon as that batch is done.  The engine's CC stitching still reads one
+convergence flag per round (``postprocess.merge_rounds``).
+
+Every layer writes into one ``runtime/telemetry.CostBook``: engine call
+walls (``stage="dispatch"``), dispatch-through-copy walls (``"step"``),
+per-image box walls (``"postprocess"``) and the scheduler's series;
+:meth:`metrics_snapshot` and :meth:`metrics_prometheus` export it.  With
+``activation_budget_bytes`` each bucket's batch cap is how many planned
+per-image activation peaks (``core.memplan``) fit the budget, and
+``engine_cache_bytes`` makes the engine LRU evict by planned bytes.
+
+The cost-model planner, ``tall_plan`` and every plan but ``SingleDevice``
+are not ported yet, nor the EAST and DB heads: asking for them raises
+``NotImplementedError``.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+        --width 0.125 --batched --postprocess device
 """
 from __future__ import annotations
 
+import argparse
 import threading
 import time
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.launch.batching import round_batch
+from repro_torch.launch.batching import (LatencyRecorder, MicroBatcher,
+                                         round_batch)
 from repro_torch.runtime.executor import (
     EngineFactory,
     SingleDevice,
     check_plan,
     check_precision,
+    plan_kind,
 )
+from repro_torch.runtime.pipeline import HostPipeline
+from repro_torch.runtime.telemetry import CostBook, prometheus_text
 
 MAX_WIDTH = 4096          # the paper's width limit
 
@@ -59,43 +101,68 @@ def _not_ported(**options) -> None:
 
 
 class STDService:
-    """Bucketed STD serving on one device (``"cuda"`` by default)."""
+    """Bucketed STD serving on one device (``"cuda"`` by default):
+    sequential, pipelined and micro-batched."""
 
     def __init__(self, width: float = 0.25, mode: str = "optimized",
                  buckets: Tuple[int, ...] = (64, 128, 256),
                  score_thr: float = 0.5, link_thr: float = 0.5,
-                 max_batch: int = 8, batch_round: str = "pow2",
+                 max_batch: int = 8, max_wait_ms: float = 5.0,
+                 batch_round: str = "pow2",
                  engine_cache_capacity: int = 16,
+                 plan=None, tall_plan=None, planner=None,
+                 max_pending: int = 0, admission: str = "block",
+                 inflight: int = 1, book: Optional[CostBook] = None,
                  precision: str = "f32", postprocess: str = "host",
-                 model: str = "pixellink", memplan: bool = True,
+                 boxes_capacity: int = 256, model: str = "pixellink",
+                 memplan: bool = True,
+                 activation_budget_bytes: Optional[int] = None,
+                 engine_cache_bytes: int = 0,
                  merge_ch: Tuple[int, int, int] = (16, 16, 8),
                  device="cuda",
-                 params: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
-                 plan=None, tall_plan=None, planner=None, book=None,
-                 activation_budget_bytes: Optional[int] = None):
+                 params: Optional[Dict[str, Dict[str, torch.Tensor]]] = None):
         from repro_torch.core import BFPConfig
         from repro_torch.models.fcn.heads import (
             DetectionModel, build_head, check_model)
         from repro_torch.models.fcn.pixellink import STDConfig
 
+        if max_batch < 1:
+            raise ValueError("max_batch must be >= 1")
         if postprocess not in ("host", "device"):
             raise ValueError(
                 f"postprocess must be 'host' or 'device', got {postprocess!r}")
-        _not_ported(postprocess_device=postprocess == "device",
-                    tall_plan=tall_plan, planner=planner, book=book,
-                    activation_budget_bytes=activation_budget_bytes)
+        if boxes_capacity < 1:
+            raise ValueError("boxes_capacity must be >= 1")
+        if inflight < 0:
+            raise ValueError("inflight must be >= 0")
+        _not_ported(tall_plan=tall_plan, planner=planner)
         if plan is not None:
             check_plan(plan)
-        if max_batch < 1:
-            raise ValueError("max_batch must be >= 1")
         self.model_name = check_model(model)
         self.head = build_head(model, score_thr=score_thr, link_thr=link_thr)
+        if postprocess == "device" and \
+                not self.head.supports_device_postprocess:
+            raise ValueError(
+                f"model {model!r} has no label-map payload, so the "
+                f"device-compact box tail does not apply; use "
+                f"postprocess='host'")
+        self.postprocess_mode = postprocess
+        self.boxes_capacity = boxes_capacity
         self.precision = check_precision(precision)
         self.plan = SingleDevice()
         self.buckets = buckets
         self.max_batch = max_batch
+        self.max_wait_ms = max_wait_ms
         self.batch_round = batch_round
+        self.max_pending = max_pending
+        self.admission = admission
+        self.inflight = inflight
+        self.memplan_enabled = bool(memplan)
+        self.activation_budget_bytes = activation_budget_bytes
+        self._bucket_caps: Dict[Tuple[int, int], int] = {}
         self._lock = threading.Lock()
+        self._batcher: Optional[MicroBatcher] = None
+        self.book = book if book is not None else CostBook()
 
         def make_model(hw, precision="f32", model="pixellink"):
             # "bfp" is the paper's quantized datapath: BFP convs, FP16
@@ -111,12 +178,41 @@ class STDService:
 
         self.factory = EngineFactory(
             make_model, score_thr=score_thr, link_thr=link_thr,
-            capacity=engine_cache_capacity, device=device)
+            capacity=engine_cache_capacity, device=device, book=self.book,
+            engine_bytes_budget=engine_cache_bytes)
         self.device = self.factory.device
+        # the completion thread copies results on its own stream, after
+        # the dispatch's event, so a copy need not wait for later batches
+        self._copy_stream = (torch.cuda.Stream(self.device)
+                             if self.device.type == "cuda" else None)
         if params is not None:
             self.factory.set_params(params, self.model_name)
         self.stats: Dict[str, Any] = {"n": 0, "latency_s": [],
-                                      "transposed": 0, "nonconverged": 0}
+                                      "transposed": 0, "plan_choices": {},
+                                      "nonconverged": 0, "pp_overflow": 0}
+
+    @property
+    def _engines(self):
+        """The factory's engine LRU."""
+        return self.factory.engines
+
+    def _bucket_cap(self, hw: Tuple[int, int]) -> int:
+        """Effective max batch for one bucket: with an activation budget,
+        how many planned per-image peaks (``core.memplan``) fit it;
+        without one, ``max_batch``.  Cached: the scheduler calls this
+        under its lock."""
+        if self.activation_budget_bytes is None or not self.memplan_enabled:
+            return self.max_batch
+        hw = tuple(hw)
+        cap = self._bucket_caps.get(hw)
+        if cap is None:
+            from repro_torch.core.memplan import admissible_batch
+
+            per_image = self.factory.memplan(
+                hw, self.precision, self.model_name).peak_bytes
+            cap = admissible_batch(per_image, self.activation_budget_bytes)
+            self._bucket_caps[hw] = cap
+        return cap
 
     # -- stages ---------------------------------------------------------------
     def preprocess(self, img: np.ndarray):
@@ -134,13 +230,22 @@ class STDService:
         pad[:h, :w] = img
         return pad, (h, w), transposed
 
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(a)
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
+
     def _dispatch(self, stack: np.ndarray,
                   valid_hws: List[Tuple[int, int]]):
-        """Pad the batch, run the bucket's engine; returns the device
-        tuple ``(labels, converged)`` and ``(hw, batch, t0)``."""
+        """Pad the batch and queue its work: returns the pending device
+        tuple ``(labels, converged)``, with the compact ``(rows, counts)``
+        boxes appended on the device route, and the meta ``(hw, batch,
+        kind, t0, event)`` the completion path takes (``event`` is None
+        off the card)."""
         hw = tuple(stack.shape[1:3])
         n_live = len(valid_hws)
-        b = round_batch(n_live, self.max_batch, self.batch_round)
+        b = round_batch(n_live, self._bucket_cap(hw), self.batch_round)
         if b > n_live:
             stack = np.concatenate(
                 [stack, np.zeros((b - n_live,) + stack.shape[1:],
@@ -152,60 +257,333 @@ class STDService:
                                   self.model_name)
         params = self.factory.params(hw, self.precision, self.model_name)
         t0 = time.perf_counter()
-        pending = fn(params, torch.from_numpy(stack).to(self.device),
-                     torch.from_numpy(valid_q).to(self.device))
-        return pending, (hw, b, t0)
+        pending = fn(params, self._to_device(stack), self._to_device(valid_q))
+        if self.postprocess_mode == "device":
+            # labels are already valid-masked, so padding adds no
+            # components; coordinates are label-map (quarter) pixels
+            rows, counts = self.factory.boxes_fn(
+                hw, b, self.boxes_capacity)(pending[0])
+            pending = (*pending, rows, counts)
+        event = None
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record()
+        return pending, (hw, b, plan_kind(self.plan), t0, event)
+
+    def _to_host(self, tensors, event) -> List[np.ndarray]:
+        """Copy device tensors to the host once the batch's event has
+        passed, on the copy stream."""
+        if event is None:
+            return [t.numpy() for t in tensors]
+        with torch.cuda.stream(self._copy_stream):
+            self._copy_stream.wait_event(event)
+            return [t.cpu().numpy() for t in tensors]
+
+    def _record_step(self, meta) -> None:
+        """One batch's dispatch-through-copy wall into the book."""
+        hw, b, kind, t0, _ = meta
+        self.book.record_step(hw, b, kind, time.perf_counter() - t0,
+                              precision=self.precision,
+                              model=self.model_name)
 
     def _count_nonconverged(self, converged: np.ndarray) -> None:
+        """Count label maps whose CC loop hit max_iters still changing
+        (padded slots are zero images and converge at once)."""
         k = int(np.size(converged) - np.count_nonzero(converged))
         if k:
             with self._lock:
                 self.stats["nonconverged"] += k
+            self.book.incr("pp_nonconverged", k)
 
-    def _finalize(self, raw) -> List[np.ndarray]:
-        """The label maps to the host, one per batch slot."""
-        (labels, converged), _ = raw
-        labels = labels.cpu().numpy()
-        self._count_nonconverged(converged.cpu().numpy())
-        return [labels[i] for i in range(labels.shape[0])]
+    def dispatch_labels(self, stack: np.ndarray,
+                        valid_hws: List[Tuple[int, int]]):
+        """(B, bh, bw, 3) padded batch -> the pending device tuple
+        ``(labels, converged)`` (plus ``(rows, counts)`` on the device
+        route), without waiting for it.  The batch axis may be padded past
+        ``len(valid_hws)``."""
+        return self._dispatch(stack, valid_hws)[0]
 
     def infer_labels(self, stack: np.ndarray,
                      valid_hws: List[Tuple[int, int]]) -> np.ndarray:
         """Padded batch (B, bh, bw, 3) -> label maps (B, bh/4, bw/4)."""
-        return np.stack(self._finalize(self._dispatch(stack, valid_hws)))
+        pending, meta = self._dispatch(stack, valid_hws)
+        labels, converged = self._to_host(pending[:2], meta[4])
+        self._record_step(meta)
+        self._count_nonconverged(converged)
+        return labels
+
+    def _finalize(self, raw) -> List[Any]:
+        """One dispatched batch to the host, as one payload per batch slot:
+        a ``(rows, count)`` tuple on the device route (the label map when
+        the count overflows ``boxes_capacity``), the label map on the host
+        route.  Records the ``stage="step"`` wall."""
+        pending, meta = raw
+        event = meta[4]
+        if self.postprocess_mode == "device":
+            labels = pending[0]
+            converged, rows, counts = self._to_host(pending[1:], event)
+            self._record_step(meta)
+            self._count_nonconverged(converged)
+            out: List[Any] = []
+            for i in range(rows.shape[0]):
+                if counts[i] > self.boxes_capacity:
+                    with self._lock:
+                        self.stats["pp_overflow"] += 1
+                    self.book.incr("pp_overflow")
+                    out.append(self._to_host([labels[i]], event)[0])
+                else:
+                    out.append((rows[i], int(counts[i])))
+            return out
+        labels, converged = self._to_host(pending, event)
+        self._record_step(meta)
+        self._count_nonconverged(converged)
+        return [labels[i] for i in range(labels.shape[0])]
 
     def postprocess(self, payload, valid_hw: Tuple[int, int],
-                    transposed: bool) -> List[Dict]:
-        """One image's label map -> boxes (quarter-resolution pixels)."""
-        boxes, _ = self.head.decode(payload, valid_hw)
+                    transposed: bool,
+                    bucket_hw: Optional[Tuple[int, int]] = None
+                    ) -> List[Dict]:
+        """One image's payload -> boxes (quarter-resolution pixels).  The
+        wall lands in the book under ``stage="postprocess"``, keyed by the
+        bucket (from the payload's plane when ``bucket_hw`` is not given;
+        device-compact rows carry none) and the decode kind."""
+        t0 = time.perf_counter()
+        boxes, kind = self.head.decode(payload, valid_hw)
+        if bucket_hw is None:
+            plane = self.head.payload_plane(payload)
+            if plane is None:
+                raise ValueError("device-compact payloads carry no plane "
+                                 "shape; pass bucket_hw")
+            bucket_hw = (plane[0] * 4, plane[1] * 4)
+        self.book.record_step(tuple(bucket_hw), 1, kind,
+                              time.perf_counter() - t0,
+                              stage="postprocess", model=self.model_name)
         if transposed:
             for b in boxes:
                 x0, y0, x1, y1 = b["box"]
                 b["box"] = (y0, x0, y1, x1)
         return boxes
 
+    def _record_request(self, dt: float) -> None:
+        with self._lock:
+            self.stats["n"] += 1
+            self.stats["latency_s"].append(dt)
+
+    # -- scrapeable metrics ---------------------------------------------------
+    def metrics_snapshot(self) -> Dict[str, float]:
+        """Flat ``{metric_name: value}`` (labels embedded Prometheus-style):
+        request counts and latency percentiles, the scheduler's stats (the
+        live batcher's, else the last stopped one's), engine memory
+        gauges, bucket batch caps and the whole book.  Safe from any
+        thread."""
+        out: Dict[str, float] = {}
+        with self._lock:
+            n = self.stats["n"]
+            lat = list(self.stats["latency_s"])
+            transposed = self.stats["transposed"]
+            mb_snap = self.stats.get("batching_snapshot")
+            batcher = self._batcher
+        out["std_requests_total"] = float(n)
+        out["std_transposed_total"] = float(transposed)
+        if lat:
+            out["std_request_latency_p50_ms"] = float(
+                np.percentile(lat, 50) * 1e3)
+            out["std_request_latency_p99_ms"] = float(
+                np.percentile(lat, 99) * 1e3)
+        if batcher is not None:
+            mb_snap = batcher.stats_snapshot()
+        for k, v in (mb_snap or {}).items():
+            out[f"std_mb_{k}"] = float(v)
+        for row in list(self.factory.stats["engine_memory"]):
+            lbl = (f'bucket="{row["hw"][0]}x{row["hw"][1]}",'
+                   f'batch="{row["batch"]}",plan="{row["plan"]}",'
+                   f'model="{row["model"]}"')
+            out[f"std_engine_planned_peak_bytes{{{lbl}}}"] = float(
+                row["planned_peak_bytes"])
+            for k in ("temp_bytes", "peak_bytes"):
+                if k in row:
+                    out[f"std_engine_{k}{{{lbl}}}"] = float(row[k])
+        for hw, cap in sorted(self._bucket_caps.items()):
+            out[f'std_bucket_batch_cap{{bucket="{hw[0]}x{hw[1]}"}}'] = \
+                float(cap)
+        out.update(self.book.snapshot())
+        return out
+
+    def metrics_prometheus(self) -> str:
+        """:meth:`metrics_snapshot` in Prometheus text-exposition form."""
+        return prometheus_text(self.metrics_snapshot())
+
+    def queue_gauges(self) -> Dict[str, float]:
+        """Queued requests and in-flight batches (zeros without a running
+        batcher)."""
+        batcher = self._batcher
+        if batcher is None:
+            return {"queue_depth": 0.0, "inflight": 0.0}
+        snap = batcher.stats_snapshot()
+        return {"queue_depth": snap.get("queue_depth", 0.0),
+                "inflight": snap.get("inflight", 0.0)}
+
+    def measure_engine_memory(self, hw: Tuple[int, int],
+                              batch: Optional[int] = None) -> Dict[str, Any]:
+        """Measure one bucket engine's memory at ``batch`` (default: the
+        bucket's cap); see ``EngineFactory.measure_engine_memory``.  The
+        row lands in the ``std_engine_*_bytes`` gauges."""
+        hw = tuple(hw)
+        b = int(batch) if batch is not None else self._bucket_cap(hw)
+        return self.factory.measure_engine_memory(
+            hw, b, self.plan, self.precision, self.model_name)
+
     def __call__(self, img: np.ndarray) -> List[Dict]:
         t0 = time.perf_counter()
         x, valid, tr = self.preprocess(img)
         out = self._finalize(self._dispatch(x[None], [valid]))[0]
-        boxes = self.postprocess(out, valid, tr)
-        with self._lock:
-            self.stats["n"] += 1
-            self.stats["latency_s"].append(time.perf_counter() - t0)
+        boxes = self.postprocess(out, valid, tr, bucket_hw=tuple(x.shape[:2]))
+        self._record_request(time.perf_counter() - t0)
         return boxes
 
-    # -- serving modes of the reference that are not ported yet ----------------
-    def serve_pipelined(self, images):
-        raise NotImplementedError("HostPipeline serving is not ported yet")
+    # -- pipelined server (C4 module-level multithreading) --------------------
+    def serve_pipelined(self, images: List[np.ndarray]) -> List[List[Dict]]:
+        def infer(item):
+            x, valid, tr = item
+            out = self._finalize(self._dispatch(x[None], [valid]))[0]
+            return out, valid, tr, tuple(x.shape[:2])
 
-    def start_batched(self):
-        raise NotImplementedError("MicroBatcher serving is not ported yet")
+        def post(item):
+            out, valid, tr, bhw = item
+            return self.postprocess(out, valid, tr, bucket_hw=bhw)
 
-    def submit(self, img):
-        raise NotImplementedError("MicroBatcher serving is not ported yet")
+        pipe = HostPipeline([self.preprocess, infer, post], maxsize=4)
+        t0 = time.perf_counter()
+        results = pipe.run(images)
+        with self._lock:
+            self.stats["pipelined_tps"] = len(images) / (
+                time.perf_counter() - t0)
+        return results
 
-    def serve_batched(self, images, **kw):
-        raise NotImplementedError("MicroBatcher serving is not ported yet")
+    # -- micro-batched server -------------------------------------------------
+    def _mb_infer(self, key, payloads):
+        """Dispatch stage: queue one batch and return it pending."""
+        stack = np.stack([p[0] for p in payloads])
+        return self._dispatch(stack, [p[1] for p in payloads])
 
-    def metrics_snapshot(self):
-        raise NotImplementedError("CostBook telemetry is not ported yet")
+    def _mb_finalize(self, key, raw):
+        """Completion stage: the batch to the host, one payload per slot
+        (the batch axis may be padded; the scheduler zips live items)."""
+        return self._finalize(raw)
+
+    def _mb_post(self, payload, out):
+        x, valid, tr = payload
+        return self.postprocess(out, valid, tr, bucket_hw=tuple(x.shape[:2]))
+
+    def start_batched(self) -> "STDService":
+        """Start the micro-batching scheduler (idempotent)."""
+        if self._batcher is None:
+            self._batcher = MicroBatcher(
+                self._mb_infer, self._mb_post,
+                finalize_fn=self._mb_finalize,
+                max_batch=self.max_batch, max_wait_ms=self.max_wait_ms,
+                max_pending=self.max_pending, admission=self.admission,
+                inflight=self.inflight, book=self.book,
+                max_batch_for=(self._bucket_cap
+                               if self.activation_budget_bytes is not None
+                               else None))
+            self._batcher.start()
+        return self
+
+    def stop_batched(self) -> None:
+        if self._batcher is not None:
+            self._batcher.stop()
+            with self._lock:
+                self.stats["batching"] = self._batcher.stats
+                self.stats["batching_snapshot"] = \
+                    self._batcher.stats_snapshot()
+            self._batcher = None
+
+    def submit(self, img: np.ndarray) -> Future:
+        """Async request: preprocess on the caller's thread, then enqueue
+        on the bucket's micro-batch."""
+        if self._batcher is None:
+            raise RuntimeError("call start_batched() first")
+        x, valid, tr = self.preprocess(img)
+        return self._batcher.submit(x.shape[:2], (x, valid, tr))
+
+    def serve_batched(self, images: List[np.ndarray], *,
+                      pre_workers: int = 4) -> List[List[Dict]]:
+        """Closed-loop batched serving: preprocess and submit from a small
+        thread pool (so buckets fill), gather the futures in order."""
+        started_here = self._batcher is None
+        self.start_batched()
+        rec = LatencyRecorder()
+        t0 = time.perf_counter()
+
+        def one(img):
+            t = time.perf_counter()
+            return rec.track(self.submit(img), t0=t)
+
+        try:
+            with ThreadPoolExecutor(pre_workers) as ex:
+                futs = list(ex.map(one, images))
+            results = [f.result(timeout=600) for f in futs]
+            dt = time.perf_counter() - t0
+            rec.wait(600)
+            with self._lock:
+                self.stats["batched_tps"] = len(images) / dt
+                self.stats["batched_latency_s"] = rec.samples
+            return results
+        finally:
+            if started_here:
+                self.stop_batched()
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(
+        description="Serve random-size STD requests sequentially, pipelined "
+                    "and (with --batched) micro-batched.")
+    ap.add_argument("--requests", type=int, default=16)
+    ap.add_argument("--width", type=float, default=0.25)
+    ap.add_argument("--mode", default="optimized")
+    ap.add_argument("--batched", action="store_true",
+                    help="also run the micro-batched scheduler path")
+    ap.add_argument("--max-batch", type=int, default=8)
+    ap.add_argument("--max-wait-ms", type=float, default=5.0)
+    ap.add_argument("--precision", default="f32", choices=["f32", "bfp"])
+    ap.add_argument("--postprocess", default="host",
+                    choices=["host", "device"],
+                    help="box extraction: host label-map decode or "
+                         "compact rows on the device")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to serve on (cuda or cpu)")
+    args = ap.parse_args(argv)
+
+    from repro_torch.data.images import RequestStream
+
+    svc = STDService(width=args.width, mode=args.mode,
+                     max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
+                     precision=args.precision, postprocess=args.postprocess,
+                     device=args.device)
+    images = RequestStream(
+        args.requests, seed=0, hw_range=((48, 120), (48, 120))).images()
+    t0 = time.perf_counter()        # includes each bucket's first build
+    for img in images:
+        svc(img)
+    seq_dt = time.perf_counter() - t0
+    out = svc.serve_pipelined(images)
+    msg = (f"[serve] {args.requests} reqs on {svc.device}  "
+           f"sequential {args.requests / seq_dt:.2f} TPS  "
+           f"pipelined {svc.stats['pipelined_tps']:.2f} TPS")
+    if args.batched:
+        out_b = svc.serve_batched(images)
+        if [[b["box"] for b in r] for r in out] != \
+                [[b["box"] for b in r] for r in out_b]:
+            raise SystemExit("batched boxes differ from pipelined boxes")
+        msg += f"  batched {svc.stats['batched_tps']:.2f} TPS"
+        sizes = [b["n"] for b in svc.stats["batching"]["batches"]]
+        msg += f"  mean batch {np.mean(sizes):.2f}"
+    msg += (f"  median latency {np.median(svc.stats['latency_s']) * 1e3:.1f}"
+            f" ms  boxes[0]={len(out[0])}")
+    print(msg)
+    return svc.stats
+
+
+if __name__ == "__main__":
+    main()

@@ -12,7 +12,7 @@ and DB heads of the reference are not ported yet; asking for them raises
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,9 +28,18 @@ NOT_PORTED_MODELS = ("east", "db")
 
 
 class DetectionHead:
-    """One detection model's head: specs, maps, tail, decode."""
+    """One detection model's head: specs, maps, tail, decode.
+
+    ``payload_ranks`` are the ranks of the device tensors :meth:`tail`
+    returns before the trailing ``converged`` flag, ``n_payload`` their
+    number, and ``supports_device_postprocess`` says whether the
+    label-map -> compact-boxes device tail applies (single label-map
+    payloads only)."""
 
     name: str = "base"
+    payload_ranks: Tuple[int, ...] = (3,)
+    n_payload: int = 1
+    supports_device_postprocess: bool = False
 
     def __init__(self, score_thr: float = 0.5, link_thr: float = 0.5):
         self.score_thr = float(score_thr)
@@ -45,8 +54,17 @@ class DetectionHead:
     def tail(self, factory, out, valid_q):
         raise NotImplementedError
 
+    def payload_plane(self, payload: Any) -> Optional[Tuple[int, int]]:
+        """Quarter-resolution (h, w) plane of one image's payload, or None
+        for device-compact rows, which carry no plane."""
+        if isinstance(payload, tuple):
+            return None
+        return tuple(np.asarray(payload).shape[:2])
+
     def decode(self, payload: Any, valid_hw: Tuple[int, int]
                ) -> Tuple[List[Dict], str]:
+        """One image's payload -> ``(boxes, kind)``, kind naming the
+        postprocess telemetry series ("host" or "device")."""
         raise NotImplementedError
 
     @staticmethod
@@ -59,6 +77,9 @@ class PixelLinkHead(DetectionHead):
     """1 score + 8 neighbour-link channels, CC over positive links."""
 
     name = "pixellink"
+    payload_ranks = (3,)
+    n_payload = 1
+    supports_device_postprocess = True
 
     def head_specs(self, feat):
         return fusion.pixellink_head(feat)
@@ -75,8 +96,12 @@ class PixelLinkHead(DetectionHead):
         return factory.label_tail(out["score"], out["links"], valid_q)
 
     def decode(self, payload, valid_hw):
+        """A ``(rows, count)`` tuple is the device-compact payload, a
+        label map the host one."""
         from . import postprocess as pp
 
+        if isinstance(payload, tuple):
+            return pp.boxes_from_compact(payload[0]), "device"
         return pp.boxes_from_labels(self._crop_q(payload, valid_hw)), "host"
 
 

@@ -11,7 +11,12 @@ take a leading batch axis or none; every image of a batch keeps its own
 round count and convergence flag.
 
 ``cc_label_numpy`` is the union-find oracle; ``boxes_from_labels`` is the
-host-side box extraction of the serving tail.
+host-side box extraction of the serving tail.  The device tail,
+:func:`boxes_from_labels_batched_torch`, compacts each converged label
+map into a fixed-capacity ``(capacity + 1, 6)`` box tensor on the map's
+own device, with no host sync, so the serving tail copies a few hundred
+bytes per image instead of the plane; :func:`boxes_from_compact` decodes
+those rows into the same box dicts.
 """
 from __future__ import annotations
 
@@ -144,6 +149,15 @@ def cc_label_stats(score: torch.Tensor, links: torch.Tensor,
     return labels[0], iters[0], conv[0]
 
 
+def cc_label(score: torch.Tensor, links: torch.Tensor,
+             score_thr: float = 0.5, link_thr: float = 0.5,
+             max_iters: int = 256, hop: str = "log") -> torch.Tensor:
+    """One (H, W) image -> its (H, W) int32 label map (0 = background,
+    else the component's max linear index + 1)."""
+    return cc_label_stats(score, links, score_thr, link_thr, max_iters,
+                          hop)[0]
+
+
 def cc_label_numpy(score: np.ndarray, links: np.ndarray,
                    score_thr: float = 0.5, link_thr: float = 0.5
                    ) -> np.ndarray:
@@ -226,3 +240,119 @@ def boxes_from_labels_reference(labels: np.ndarray,
             "area": int(ys.size),
         })
     return out
+
+
+#: fill value of unused unique-label slots in the device extraction
+#: (larger than any real label: labels are bounded by H*W + 1)
+_BOX_FILL = np.iinfo(np.int32).max
+
+
+def boxes_from_labels_batched_torch(labels: torch.Tensor, capacity: int):
+    """(N, H, W) int32 label maps -> ``(rows, counts)``: ``rows`` (N,
+    capacity + 1, 6) int32 of ``(label, x0, y0, x1, y1, area)`` and
+    ``counts`` (N,) int32, on the labels' device and without a host sync.
+
+    Per image, the ``capacity + 1`` smallest label values form a sorted
+    unique list (``sort``, a first-of-run mask, ``cumsum`` to ranks and a
+    scatter into a buffer prefilled with ``_BOX_FILL``); slot 0 takes the
+    background when there is one.  Each pixel finds its slot by
+    ``searchsorted`` and scatter-reduces its coordinates (min, max) and
+    its area (sum) into it.  Rows come in ascending label order, unused
+    and background slots are all-zero, and a label past the capacity
+    contributes nothing.  ``counts`` is the exact number of fixpoint
+    representatives (pixels whose label is their own index + 1), so
+    ``counts > capacity`` detects an overflow whatever the capacity."""
+    n, h, w = labels.shape
+    npx = h * w
+    seg = capacity + 1
+    dev = labels.device
+    flat = labels.reshape(n, npx).to(torch.int32)
+    srt = torch.sort(flat, dim=1).values
+    first = torch.ones_like(srt, dtype=torch.bool)
+    first[:, 1:] = srt[:, 1:] != srt[:, :-1]
+    rank = torch.cumsum(first.to(torch.int64), dim=1) - 1
+    # ranks past the capacity, and every repeat, go to a junk slot
+    dst = torch.where(first & (rank < seg), rank, torch.full_like(rank, seg))
+    uniq = torch.full((n, seg + 1), _BOX_FILL, dtype=torch.int32, device=dev)
+    uniq = uniq.scatter(1, dst, srt)[:, :seg].contiguous()
+    slot = torch.clamp(torch.searchsorted(uniq, flat), max=capacity)
+    ok = (torch.gather(uniq, 1, slot) == flat) & (flat > 0)
+    idx = torch.arange(npx, dtype=torch.int32, device=dev).expand(n, npx)
+    ys, xs = idx // w, idx % w
+    big = torch.full_like(idx, max(h, w))
+    neg = torch.full_like(idx, -1)
+    i32 = np.iinfo(np.int32)
+
+    def reduce(src, how, init):
+        buf = torch.full((n, seg), init, dtype=torch.int32, device=dev)
+        return buf.scatter_reduce(1, slot, src, how, include_self=True)
+
+    x0 = reduce(torch.where(ok, xs, big), "amin", i32.max)
+    y0 = reduce(torch.where(ok, ys, big), "amin", i32.max)
+    x1 = reduce(torch.where(ok, xs, neg), "amax", i32.min)
+    y1 = reduce(torch.where(ok, ys, neg), "amax", i32.min)
+    area = reduce(ok.to(torch.int32), "sum", 0)
+    lab = torch.where((uniq > 0) & (uniq < _BOX_FILL), uniq,
+                      torch.zeros_like(uniq))
+    rows = torch.stack([lab, x0, y0, x1, y1, area], dim=-1)
+    keep = ((lab > 0) & (area > 0))[..., None]
+    rows = torch.where(keep, rows, torch.zeros_like(rows))
+    counts = (flat == idx + 1).sum(dim=1, dtype=torch.int32)
+    return rows, counts
+
+
+def boxes_from_labels_torch(labels: torch.Tensor, capacity: int):
+    """One (H, W) label map -> ``(rows (capacity + 1, 6), count)``; see
+    :func:`boxes_from_labels_batched_torch`."""
+    rows, counts = boxes_from_labels_batched_torch(labels[None], capacity)
+    return rows[0], counts[0]
+
+
+def boxes_from_compact(rows: np.ndarray, min_area: int = 1) -> List[Dict]:
+    """Compact device rows -> the host box dicts, in the rows' ascending
+    label order, so the result equals :func:`boxes_from_labels` on the
+    same label map."""
+    rows = np.asarray(rows)
+    keep = (rows[:, 0] > 0) & (rows[:, 5] >= min_area)
+    return [
+        {
+            "label": int(lab),
+            "box": (int(x0), int(y0), int(x1), int(y1)),
+            "area": int(area),
+        }
+        for lab, x0, y0, x1, y1, area in rows[keep]
+    ]
+
+
+def f_measure(pred_boxes: List[Dict],
+              gt_boxes: List[Tuple[int, int, int, int]],
+              iou_thr: float = 0.5) -> Dict[str, float]:
+    """IoU-matched precision, recall and F (the paper's Table VI).  Each
+    prediction takes the unmatched ground-truth box of HIGHEST IoU at or
+    above the threshold."""
+    def iou(a, b):
+        ax0, ay0, ax1, ay1 = a
+        bx0, by0, bx1, by1 = b
+        iw = max(min(ax1, bx1) - max(ax0, bx0) + 1, 0)
+        ih = max(min(ay1, by1) - max(ay0, by0) + 1, 0)
+        inter = iw * ih
+        ua = (ax1 - ax0 + 1) * (ay1 - ay0 + 1)
+        ub = (bx1 - bx0 + 1) * (by1 - by0 + 1)
+        return inter / max(ua + ub - inter, 1)
+
+    matched, tp = set(), 0
+    for pb in pred_boxes:
+        best_gi, best_iou = -1, 0.0
+        for gi, gb in enumerate(gt_boxes):
+            if gi in matched:
+                continue
+            v = iou(pb["box"], gb)
+            if v >= iou_thr and v > best_iou:
+                best_gi, best_iou = gi, v
+        if best_gi >= 0:
+            matched.add(best_gi)
+            tp += 1
+    prec = tp / max(len(pred_boxes), 1)
+    rec = tp / max(len(gt_boxes), 1)
+    f = 2 * prec * rec / max(prec + rec, 1e-9)
+    return {"precision": prec, "recall": rec, "f_measure": f}

@@ -1,0 +1,278 @@
+"""Telemetry: the measurement store every serving layer writes into.
+
+:class:`CostBook` keeps engine step times keyed by ``(bucket_hw, batch,
+plan_kind)`` with a ``stage`` (``"dispatch"``: the engine-call wall that
+``runtime/executor.EngineFactory`` records; ``"step"``: dispatch through
+the copy to the host, recorded by ``launch/serve.STDService``;
+``"postprocess"``: one image's box decode), a ``precision`` and a
+``model``, and named series, counters and gauges from
+``launch/batching.MicroBatcher``.  Every series keeps a count, an EWMA
+and a bounded window of recent samples for p50/p99; all mutations hold
+one lock.  :meth:`CostBook.snapshot` and :func:`prometheus_text` export
+it all in a flat, scrapeable form (labels embedded Prometheus-style in
+the metric names), which ``STDService.metrics_snapshot()`` serves.
+
+The cost-model calibration that reads the book (``fit_cost_params`` and
+its JSON I/O) belongs to the planner, which is not ported yet.
+"""
+from __future__ import annotations
+
+import math
+import threading
+from collections import deque
+from typing import Dict, List, Optional, Tuple
+
+StepKey = Tuple[Tuple[int, int], int, str]
+
+
+class _Series:
+    """Count + EWMA + bounded recent-sample window for one metric.
+
+    The window is a deterministic sliding reservoir (last ``maxlen``
+    samples), so percentile queries need no randomness and tests can
+    pin exact values."""
+
+    __slots__ = ("count", "ewma", "total", "window")
+
+    def __init__(self, window: int):
+        self.count = 0
+        self.ewma: Optional[float] = None
+        self.total = 0.0
+        self.window: deque = deque(maxlen=window)
+
+    def add(self, value: float, alpha: float) -> None:
+        self.count += 1
+        self.total += value
+        self.ewma = (value if self.ewma is None
+                     else alpha * value + (1.0 - alpha) * self.ewma)
+        self.window.append(value)
+
+    def percentile(self, q: float) -> Optional[float]:
+        if not self.window:
+            return None
+        xs = sorted(self.window)
+        i = min(len(xs) - 1, max(0, math.ceil(q / 100.0 * len(xs)) - 1))
+        return xs[i]
+
+
+class CostBook:
+    """Lock-guarded measurement store: engine step times keyed by
+    ``(bucket_hw, batch, plan_kind)`` and named scheduler/service
+    series, each with count / EWMA / p50 / p99.
+
+    Writers (engine wrappers, scheduler stages, service completion)
+    call :meth:`record_step`, :meth:`observe`, :meth:`incr`,
+    :meth:`set_gauge` from their own threads; every mutation and every
+    read holds ``_lock`` — the counters are read-modify-write, so the
+    GIL alone would lose updates."""
+
+    def __init__(self, *, ewma_alpha: float = 0.25, window: int = 256,
+                 warmup: int = 1,
+                 labels: Optional[Dict[str, str]] = None):
+        if not 0.0 < ewma_alpha <= 1.0:
+            raise ValueError("ewma_alpha must be in (0, 1]")
+        if warmup < 0:
+            raise ValueError("warmup must be >= 0")
+        self.ewma_alpha = ewma_alpha
+        self.window = window
+        # constant label set (e.g. {"replica": "r0"}) embedded in every
+        # snapshot metric name, so N per-replica books aggregate into
+        # one scrape without the named counters/gauges clobbering each
+        # other
+        self.labels: Dict[str, str] = dict(labels or {})
+        # the first call of an engine builds its model, plans its
+        # memory and (on the card) loads the kernels, a one-off that
+        # would poison a millisecond-scale EWMA — skip the first
+        # ``warmup`` samples per (combo, stage)
+        self.warmup = warmup
+        self._lock = threading.Lock()
+        # step series key: (StepKey, stage, precision, model)
+        self._steps: Dict[Tuple[StepKey, str, str, str], _Series] = {}
+        self._warm: Dict[Tuple[StepKey, str, str, str], int] = {}
+        self._series: Dict[str, _Series] = {}
+        self._counters: Dict[str, float] = {}
+        self._gauges: Dict[str, float] = {}
+
+    @staticmethod
+    def _step_key(hw, batch, kind) -> StepKey:
+        return ((int(hw[0]), int(hw[1])), int(batch), str(kind))
+
+    # -- writers ---------------------------------------------------------------
+    def record_step(self, hw: Tuple[int, int], batch: int, kind: str,
+                    seconds: float, *, stage: str = "step",
+                    precision: str = "f32",
+                    model: str = "pixellink") -> None:
+        """One engine step's wall time for a (bucket, batch, plan_kind)
+        combo.  ``stage="dispatch"`` is the engine-call wall
+        (executor); ``stage="step"`` is dispatch through the copy to the
+        host.  ``precision`` keeps f32 and bfp walls in separate series
+        (they run different kernels); ``model`` does the same across
+        detection heads."""
+        key = (self._step_key(hw, batch, kind), stage, str(precision),
+               str(model))
+        with self._lock:
+            warm = self._warm.get(key, 0)
+            if warm < self.warmup:
+                self._warm[key] = warm + 1
+                return
+            s = self._steps.get(key)
+            if s is None:
+                s = self._steps[key] = _Series(self.window)
+            s.add(float(seconds), self.ewma_alpha)
+
+    def observe(self, name: str, value: float) -> None:
+        """One sample of a named series (stage timings, occupancy...)."""
+        with self._lock:
+            s = self._series.get(name)
+            if s is None:
+                s = self._series[name] = _Series(self.window)
+            s.add(float(value), self.ewma_alpha)
+
+    def incr(self, name: str, n: float = 1.0) -> None:
+        """Monotonic counter (sheds, submissions...)."""
+        with self._lock:
+            self._counters[name] = self._counters.get(name, 0.0) + n
+
+    def set_gauge(self, name: str, value: float) -> None:
+        """Point-in-time gauge (queue depth, in-flight batches...)."""
+        with self._lock:
+            self._gauges[name] = float(value)
+
+    # -- readers ---------------------------------------------------------------
+    def step_count(self, hw, batch, kind, *, stage: str = "step",
+                   precision: str = "f32",
+                   model: str = "pixellink") -> int:
+        key = (self._step_key(hw, batch, kind), stage, str(precision),
+               str(model))
+        with self._lock:
+            s = self._steps.get(key)
+            return s.count if s is not None else 0
+
+    def step_ewma(self, hw, batch, kind, *, stage: str = "step",
+                  precision: str = "f32",
+                  model: str = "pixellink") -> Optional[float]:
+        key = (self._step_key(hw, batch, kind), stage, str(precision),
+               str(model))
+        with self._lock:
+            s = self._steps.get(key)
+            return s.ewma if s is not None else None
+
+    def step_percentile(self, hw, batch, kind, q: float, *,
+                        stage: str = "step",
+                        precision: str = "f32",
+                        model: str = "pixellink") -> Optional[float]:
+        key = (self._step_key(hw, batch, kind), stage, str(precision),
+               str(model))
+        with self._lock:
+            s = self._steps.get(key)
+            return s.percentile(q) if s is not None else None
+
+    def step_total(self, hw, batch, kind, *, stage: str = "step",
+                   precision: str = "f32",
+                   model: str = "pixellink") -> float:
+        """Cumulative wall seconds for one combo — the busy-time view
+        (e.g. summing ``stage="postprocess"`` walls across buckets gives
+        each postprocess mode's total tail cost in an A/B)."""
+        key = (self._step_key(hw, batch, kind), stage, str(precision),
+               str(model))
+        with self._lock:
+            s = self._steps.get(key)
+            return s.total if s is not None else 0.0
+
+    def step_keys(self, *, stage: str = "step",
+                  precision: str = "f32",
+                  model: str = "pixellink") -> List[StepKey]:
+        """Every (hw, batch, kind) combo with at least one sample at
+        this (stage, precision, model)."""
+        with self._lock:
+            return sorted(k for k, st, pr, md in self._steps
+                          if st == stage and pr == precision
+                          and md == model)
+
+    def counter(self, name: str) -> float:
+        with self._lock:
+            return self._counters.get(name, 0.0)
+
+    def gauge(self, name: str) -> Optional[float]:
+        with self._lock:
+            return self._gauges.get(name)
+
+    def snapshot(self, prefix: str = "std_") -> Dict[str, float]:
+        """Flat scrapeable ``{metric_name: value}`` view of everything
+        in the book.  Labels are embedded Prometheus-style in the name,
+        so the dict stays flat: e.g.
+        ``std_step_ewma_s{bucket="128x64",batch="4",plan="row_band",
+        stage="step"}``.  A book constructed with ``labels=`` gets them
+        merged into every name (see :func:`relabel`), so per-replica
+        books stay disjoint when a router aggregates N snapshots."""
+        out: Dict[str, float] = {}
+        with self._lock:
+            for ((hw, batch, kind), stage, precision, model), s in sorted(
+                    self._steps.items()):
+                # the f32/pixellink defaults keep the historical label
+                # shape; other precisions/models append their own labels
+                # so scrapers can tell them apart
+                prec = ("" if precision == "f32"
+                        else f',precision="{precision}"')
+                mdl = ("" if model == "pixellink"
+                       else f',model="{model}"')
+                lbl = (f'{{bucket="{hw[0]}x{hw[1]}",batch="{batch}",'
+                       f'plan="{kind}",stage="{stage}"{prec}{mdl}}}')
+                out[f"{prefix}step_count{lbl}"] = float(s.count)
+                if s.ewma is not None:
+                    out[f"{prefix}step_ewma_s{lbl}"] = s.ewma
+                p50, p99 = s.percentile(50), s.percentile(99)
+                if p50 is not None:
+                    out[f"{prefix}step_p50_s{lbl}"] = p50
+                    out[f"{prefix}step_p99_s{lbl}"] = p99
+            for name, s in sorted(self._series.items()):
+                out[f"{prefix}{name}_count"] = float(s.count)
+                if s.ewma is not None:
+                    out[f"{prefix}{name}_ewma"] = s.ewma
+                p50, p99 = s.percentile(50), s.percentile(99)
+                if p50 is not None:
+                    out[f"{prefix}{name}_p50"] = p50
+                    out[f"{prefix}{name}_p99"] = p99
+            for name, v in sorted(self._counters.items()):
+                out[f"{prefix}{name}_total"] = v
+            for name, v in sorted(self._gauges.items()):
+                out[f"{prefix}{name}"] = v
+        if self.labels:
+            out = relabel(out, **self.labels)
+        return out
+
+
+def _merge_labels(name: str, suffix: str) -> str:
+    """Insert a rendered ``k="v",...`` label suffix into a metric name,
+    merging into an existing ``{...}`` group or appending a new one."""
+    if not suffix:
+        return name
+    if name.endswith("}"):
+        return f"{name[:-1]},{suffix}}}"
+    return f"{name}{{{suffix}}}"
+
+
+def relabel(metrics: Dict[str, float], **labels: str) -> Dict[str, float]:
+    """Embed constant labels into every metric name of a flat snapshot
+    (names already carrying one of the label keys keep their value).
+    This is the per-replica aggregation seam: N replica snapshots
+    relabel to disjoint name sets and merge into one scrape without
+    gauge clobbering."""
+    out: Dict[str, float] = {}
+    for name, v in metrics.items():
+        missing = {k: val for k, val in labels.items()
+                   if f'{k}="' not in name}
+        suffix = ",".join(f'{k}="{val}"'
+                          for k, val in sorted(missing.items()))
+        out[_merge_labels(name, suffix)] = v
+    return out
+
+
+def prometheus_text(metrics: Dict[str, float]) -> str:
+    """Render a flat ``{metric_name: value}`` dict (labels already
+    embedded in names) as Prometheus text-exposition lines."""
+    lines = []
+    for name in sorted(metrics):
+        v = metrics[name]
+        lines.append(f"{name} {float(v):.9g}")
+    return "\n".join(lines) + ("\n" if lines else "")

@@ -118,13 +118,24 @@ class TestOnCard:
         want = bfp_matmul_quantized_plain(*ops, **geo)
         torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
 
-    def test_bfp_matmul_refuses_wide_mantissas(self):
+    @pytest.mark.parametrize("mantissa_bits", [11, 13, 15])
+    def test_bfp_matmul_refuses_wide_mantissas(self, mantissa_bits):
+        """11-15 bits (hi + lo TF32 terms) against the plain version at
+        merge1_c1's shape and a ragged one, with a 1x1 conv's scales (unit
+        activations, He weights: |C| about 1); 16 bits (past int16)
+        refused.  Above 10 bits the products are no longer exact in f32,
+        so the sum order alone moves C by about 2^-24 |C| sqrt(K)."""
         dev = _cuda()
-        ops = quantize_operands(torch.ones((8, 32), device=dev),
-                                torch.ones((32, 8), device=dev),
-                                mantissa_bits=11)
-        with pytest.raises(ValueError, match="TF32"):
-            bfp_matmul_quantized(*ops, mantissa_bits=11)
+        for M, K, N in ((2048, 640, 128), (257, 200, 9)):
+            a = torch.from_numpy(_normal(M, (M, K))).to(dev)
+            b = torch.from_numpy(_normal(N, (K, N)) * (2.0 / K) ** 0.5).to(dev)
+            ops = quantize_operands(a, b, mantissa_bits=mantissa_bits)
+            geo = dict(block_size=32, mantissa_bits=mantissa_bits)
+            got = bfp_matmul_quantized(*ops, **geo)
+            want = bfp_matmul_quantized_plain(*ops, **geo)
+            torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+        with pytest.raises(ValueError, match="mantissa_bits <= 15"):
+            bfp_matmul_quantized(*ops, block_size=32, mantissa_bits=16)
 
     def test_cc_kernel(self):
         dev = _cuda()
@@ -325,6 +336,82 @@ class TestOnCard:
         want = ssd_scan(*args, chunk=32, return_state=True)
         for g, w in zip(got, want):
             torch.testing.assert_close(g.cpu(), w, atol=3e-3, rtol=3e-3)
+
+    @pytest.mark.parametrize("capacity", [4, 64])
+    def test_boxes_fn_on_card_without_sync(self, capacity):
+        """The device box tail on the card equals its CPU run bit for bit,
+        and raises nothing under sync debug mode "error"."""
+        dev = _cuda()
+        from repro_torch.models.fcn import postprocess as pp
+
+        score, links = _maps(7, 3, 40, 36)
+        labels = pp.cc_label_batched(torch.from_numpy(score),
+                                     torch.from_numpy(links))
+        want = pp.boxes_from_labels_batched_torch(labels, capacity)
+        on_card = labels.to(dev)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = pp.boxes_from_labels_batched_torch(on_card, capacity)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        for g, w in zip(got, want):
+            assert g.device.type == "cuda"
+            assert torch.equal(g.cpu(), w)
+
+    @pytest.mark.parametrize("precision", ["bfp", "f32"])
+    def test_engine_maps_batch_invariant(self, precision):
+        """An image's maps are bit-equal alone and in a batch of 4
+        (full-width VGG-16 PixelLink on zero-padded requests of the 512
+        bucket), so micro-batched serving returns the boxes of sequential
+        serving.  The fused upsample's cuDNN convs once took another
+        algorithm at batch 4, and FP16 storage carried the last-bit
+        difference on to the score maps."""
+        _cuda()
+        from repro_torch.data.images import RequestStream
+        from repro_torch.launch.serve import STDService
+
+        svc = STDService(width=1.0, precision=precision,
+                         buckets=(128, 256, 512), merge_ch=(128, 64, 32),
+                         device="cuda")
+        padded = [svc.preprocess(img)[0] for img in RequestStream(
+            24, seed=1, hw_range=((256, 512), (256, 512))).images()]
+        stack = np.stack([x for x in padded if x.shape[:2] == (512, 512)][:4])
+        model = svc.factory.model((512, 512), precision)
+        params = svc.factory.params((512, 512), precision)
+        batch = model.apply(params, torch.from_numpy(stack).cuda())
+        for i in range(len(stack)):
+            alone = model.apply(params,
+                                torch.from_numpy(stack[i:i + 1]).cuda())
+            for k in ("score", "links", "logits"):
+                assert torch.equal(batch[k][i:i + 1], alone[k]), (i, k)
+
+    @pytest.mark.parametrize("postprocess,precision", [
+        ("host", "bfp"), ("device", "bfp"), ("device", "f32")])
+    def test_serve_batched_parity(self, postprocess, precision):
+        """Micro-batched and pipelined serving on the card give the boxes
+        of sequential serving (width 0.125; in bfp K1-K3 on every
+        batch)."""
+        _cuda()
+        from repro_torch import kernels
+        from repro_torch.data.images import RequestStream
+        from repro_torch.launch.serve import STDService
+
+        images = RequestStream(6, seed=3,
+                               hw_range=((48, 64), (48, 128))).images()
+        svc = STDService(width=0.125, buckets=(64, 128), max_batch=4,
+                         max_wait_ms=20, precision=precision,
+                         postprocess=postprocess, device="cuda")
+        single = [svc(img) for img in images]
+        assert svc.serve_pipelined(images) == single
+        kernels.reset_launch_counts()
+        assert svc.serve_batched(images) == single
+        batches = svc.stats["batching"]["batches"]
+        assert max(b["n"] for b in batches) >= 2
+        counts = kernels.launch_counts()
+        assert counts["local_spread_converge"] == len(batches)
+        if precision == "bfp":
+            assert counts["bfp_matmul_quantized"] == 7 * len(batches)
 
     def test_wrappers_count_one_launch_and_check_inputs(self):
         dev = _cuda()

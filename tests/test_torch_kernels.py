@@ -160,6 +160,16 @@ class TestTensorCorePremises:
             assert 2 * splits > -(-K // k2_ops.TK)
         assert k2_ops.smem_bytes(tm, tn, -(-K // 16)) <= k2_ops.SMEM_MAX
 
+    @pytest.mark.parametrize("rows,K,N", [
+        (1024, 640, 128), (256, 512, 128), (4096, 320, 64), (64, 640, 128),
+        (16384, 32, 9)])
+    def test_launch_shape_batch_invariant(self, rows, K, N):
+        """With ``split_rows`` one image's rows, the tile and the K split,
+        and so every output's sum order, are the same at every batch."""
+        got = {k2_ops.launch_shape(b * rows, N, K, split_rows=rows)
+               for b in (1, 2, 3, 4, 8)}
+        assert got == {k2_ops.launch_shape(rows, N, K)}
+
 
 class TestWinograd:
     @pytest.mark.parametrize("hwcc,padding", [

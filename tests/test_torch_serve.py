@@ -83,19 +83,15 @@ def test_bfp_maps_within_tolerance_and_boxes_equal(requests):
 def test_unported_options_raise():
     kw = dict(width=0.125, buckets=BUCKETS, device="cpu")
     for bad in (dict(model="east"), dict(model="db"),
-                dict(postprocess="device"), dict(planner=object()),
-                dict(tall_plan=object()), dict(plan=object()),
-                dict(activation_budget_bytes=1 << 20)):
+                dict(planner=object()), dict(tall_plan=object()),
+                dict(plan=object())):
         with pytest.raises(NotImplementedError):
             STDService(**kw, **bad)
-    svc = STDService(**kw)
-    for call in (svc.start_batched, lambda: svc.serve_batched([]),
-                 lambda: svc.serve_pipelined([]),
-                 svc.metrics_snapshot):
-        with pytest.raises(NotImplementedError):
-            call()
-    with pytest.raises(ValueError):
-        STDService(**kw, model="craft")
+    for bad in (dict(model="craft"), dict(postprocess="gpu"),
+                dict(postprocess="device", boxes_capacity=0),
+                dict(max_batch=0), dict(inflight=-1)):
+        with pytest.raises(ValueError):
+            STDService(**kw, **bad)
 
 
 def test_cuda_requested_without_card_raises():
@@ -116,8 +112,15 @@ def test_port_imports_without_jax(tmp_path):
         "from repro_torch.launch.serve import STDService\n"
         "from repro_torch.data.images import RequestStream\n"
         "import repro_torch.kernels.cc_label, repro_torch.configs.pixellink_std\n"
+        "import repro_torch.runtime.telemetry, repro_torch.runtime.pipeline\n"
+        "import repro_torch.launch.batching\n"
         "svc = STDService(width=0.125, buckets=(64,), device='cpu')\n"
         "svc(RequestStream(1, seed=0, hw_range=((48, 64), (48, 64))).images()[0])\n"
+        "dev = STDService(width=0.125, buckets=(64,), device='cpu',\n"
+        "                 postprocess='device', max_batch=2)\n"
+        "imgs = RequestStream(3, seed=1, hw_range=((48, 64), (48, 64))).images()\n"
+        "assert dev.serve_batched(imgs) == [svc(i) for i in imgs]\n"
+        "assert dev.metrics_snapshot()['std_mb_submitted'] == 3\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
