@@ -41,12 +41,16 @@ per-image box walls (``"postprocess"``) and the scheduler's series;
 per-image activation peaks (``core.memplan``) fit the budget, and
 ``engine_cache_bytes`` makes the engine LRU evict by planned bytes.
 
-The cost-model planner, ``tall_plan`` and every plan but ``SingleDevice``
-are not ported yet, nor the EAST and DB heads: asking for them raises
-``NotImplementedError``.
+``model=`` picks the detection head from ``MODEL_ZOO``: ``"pixellink"``
+(the default), ``"east"`` (host box tail only: its payload is a score
+and a geometry map, no label map) or ``"db"``.  The cost-model planner,
+``tall_plan`` and every plan but ``SingleDevice`` are not ported yet:
+asking for them raises ``NotImplementedError``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
         --width 0.125 --batched --postprocess device
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+        --width 0.125 --batched --model east
 """
 from __future__ import annotations
 
@@ -239,10 +243,11 @@ class STDService:
     def _dispatch(self, stack: np.ndarray,
                   valid_hws: List[Tuple[int, int]]):
         """Pad the batch and queue its work: returns the pending device
-        tuple ``(labels, converged)``, with the compact ``(rows, counts)``
-        boxes appended on the device route, and the meta ``(hw, batch,
-        kind, t0, event)`` the completion path takes (``event`` is None
-        off the card)."""
+        tuple ``(*payload, converged)`` of the head (``(labels,
+        converged)`` for the CC heads), with the compact ``(rows,
+        counts)`` boxes appended on the device route, and the meta ``(hw,
+        batch, kind, t0, event)`` the completion path takes (``event`` is
+        None off the card)."""
         hw = tuple(stack.shape[1:3])
         n_live = len(valid_hws)
         b = round_batch(n_live, self._bucket_cap(hw), self.batch_round)
@@ -298,30 +303,36 @@ class STDService:
     def dispatch_labels(self, stack: np.ndarray,
                         valid_hws: List[Tuple[int, int]]):
         """(B, bh, bw, 3) padded batch -> the pending device tuple
-        ``(labels, converged)`` (plus ``(rows, counts)`` on the device
+        ``(*payload, converged)`` (plus ``(rows, counts)`` on the device
         route), without waiting for it.  The batch axis may be padded past
         ``len(valid_hws)``."""
         return self._dispatch(stack, valid_hws)[0]
 
     def infer_labels(self, stack: np.ndarray,
                      valid_hws: List[Tuple[int, int]]) -> np.ndarray:
-        """Padded batch (B, bh, bw, 3) -> label maps (B, bh/4, bw/4)."""
+        """Padded batch (B, bh, bw, 3) -> the head's first payload on the
+        host: label maps (B, bh/4, bw/4) for the CC heads, the masked
+        score maps for EAST."""
         pending, meta = self._dispatch(stack, valid_hws)
-        labels, converged = self._to_host(pending[:2], meta[4])
+        n = self.head.n_payload
+        first, converged = self._to_host((pending[0], pending[n]), meta[4])
         self._record_step(meta)
         self._count_nonconverged(converged)
-        return labels
+        return first
 
     def _finalize(self, raw) -> List[Any]:
         """One dispatched batch to the host, as one payload per batch slot:
         a ``(rows, count)`` tuple on the device route (the label map when
-        the count overflows ``boxes_capacity``), the label map on the host
-        route.  Records the ``stage="step"`` wall."""
+        the count overflows ``boxes_capacity``); on the host route the
+        head's payload, the label map for the CC heads and a ``(score,
+        geo)`` tuple for EAST.  Every tensor crosses on the copy stream
+        after the batch's event.  Records the ``stage="step"`` wall."""
         pending, meta = raw
         event = meta[4]
+        n = self.head.n_payload
         if self.postprocess_mode == "device":
             labels = pending[0]
-            converged, rows, counts = self._to_host(pending[1:], event)
+            converged, rows, counts = self._to_host(pending[n:], event)
             self._record_step(meta)
             self._count_nonconverged(converged)
             out: List[Any] = []
@@ -334,10 +345,12 @@ class STDService:
                 else:
                     out.append((rows[i], int(counts[i])))
             return out
-        labels, converged = self._to_host(pending, event)
+        *arrs, converged = self._to_host(pending[:n + 1], event)
         self._record_step(meta)
         self._count_nonconverged(converged)
-        return [labels[i] for i in range(labels.shape[0])]
+        if n == 1:
+            return list(arrs[0])
+        return [tuple(a[i] for a in arrs) for i in range(arrs[0].shape[0])]
 
     def postprocess(self, payload, valid_hw: Tuple[int, int],
                     transposed: bool,
@@ -551,6 +564,10 @@ def main(argv=None):
                     choices=["host", "device"],
                     help="box extraction: host label-map decode or "
                          "compact rows on the device")
+    ap.add_argument("--model", default="pixellink",
+                    choices=["pixellink", "east", "db"],
+                    help="detection head to serve (models/fcn/heads.py "
+                         "MODEL_ZOO)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (cuda or cpu)")
     args = ap.parse_args(argv)
@@ -560,7 +577,7 @@ def main(argv=None):
     svc = STDService(width=args.width, mode=args.mode,
                      max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
                      precision=args.precision, postprocess=args.postprocess,
-                     device=args.device)
+                     model=args.model, device=args.device)
     images = RequestStream(
         args.requests, seed=0, hw_range=((48, 120), (48, 120))).images()
     t0 = time.perf_counter()        # includes each bucket's first build

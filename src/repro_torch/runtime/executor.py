@@ -3,8 +3,10 @@
 :class:`EngineFactory` builds, per ``(bucket_hw, precision, model)``, the
 :class:`~repro_torch.models.fcn.heads.DetectionModel` and its parameters,
 and per ``(bucket_hw, batch, plan, precision, model)`` the engine
-callable ``fn(params, x, valid_q) -> (labels, converged)``: the FCN
-forward pass, per-image valid-region masking and batched CC labelling.
+callable ``fn(params, x, valid_q) -> (*payload, converged)``: the FCN
+forward pass and the head's tail, per-image valid-region masking and,
+for the CC heads (PixelLink, DB), batched CC labelling to ``(labels,
+converged)``; EAST returns ``(score, geo, converged)``.
 
 Parameters are per precision without being independent: the f32 entry
 holds the seeded He init (or weights the caller handed over with
@@ -37,7 +39,8 @@ import torch
 
 from repro_torch.core import resolve_device
 from repro_torch.launch.batching import LRUCache
-from repro_torch.models.fcn.heads import DEFAULT_MODEL, check_model
+from repro_torch.models.fcn.heads import (DEFAULT_MODEL, _valid_mask,
+                                          check_model)
 
 PRECISIONS = ("f32", "bfp")
 SEED = 0            # torch.Generator seed of the He init
@@ -285,6 +288,9 @@ class EngineFactory:
         return fn
 
     def _compile_single(self, hw, precision: str, model: str) -> Callable:
+        """The engine of one shape: forward pass and the head's tail, with
+        whatever arity the tail returns (``n_payload`` tensors and the
+        convergence flags)."""
         model_obj = self.model(hw, precision, model)
 
         def run(params, x, valid_q):
@@ -300,14 +306,10 @@ class EngineFactory:
         from repro_torch.kernels.cc_label import cc_label_tiled
         from repro_torch.models.fcn import postprocess as pp
 
-        h, w = score.shape[1:]
-        dev = score.device
-        mask = ((torch.arange(h, device=dev)[None, :, None]
-                 < valid_q[:, 0, None, None])
-                & (torch.arange(w, device=dev)[None, None, :]
-                   < valid_q[:, 1, None, None]))
-        cc = cc_label_tiled if dev.type == "cuda" else pp.cc_label_batched
+        cc = (cc_label_tiled if score.device.type == "cuda"
+              else pp.cc_label_batched)
         labels, _, converged = cc(score, links, self.score_thr,
-                                  self.link_thr, valid_mask=mask,
+                                  self.link_thr,
+                                  valid_mask=_valid_mask(score, valid_q),
                                   return_stats=True)
         return labels, converged

@@ -413,6 +413,114 @@ class TestOnCard:
         if precision == "bfp":
             assert counts["bfp_matmul_quantized"] == 7 * len(batches)
 
+    @pytest.mark.parametrize("mkn,split_rows", [
+        ((2 * 16384, 16, 16), 16384),     # DB's db_r1: K one ragged block
+        ((2 * 16384, 16, 1), 16384),      # DB's head_logits: N = 1
+        ((512, 2048, 512), 256),          # ResNet-50's s4b*_c1
+        ((512, 512, 2048), 256)])         # ResNet-50's s4b*_c3
+    def test_bfp_matmul_zoo_shapes(self, mkn, split_rows):
+        """K2 at the DB head's and ResNet-50's deepest shapes (512x512,
+        batch 2), against the plain version on CPU copies; the first
+        image's rows alone give the same bits as in the batch."""
+        dev = _cuda()
+        M, K, N = mkn
+        a = torch.relu(torch.from_numpy(_normal(M, (M, K)))).to(dev)
+        b = torch.from_numpy(_normal(K + N, (K, N)) * (2.0 / K) ** 0.5).to(dev)
+        ops = quantize_operands(a, b)
+        got = bfp_matmul_quantized(*ops, split_rows=split_rows)
+        want = bfp_matmul_quantized_plain(*(t.cpu() for t in ops),
+                                          block_size=32, mantissa_bits=10)
+        torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+        alone = bfp_matmul_quantized(*quantize_operands(a[:split_rows], b),
+                                     split_rows=split_rows)
+        assert torch.equal(alone, got[:split_rows])
+
+    def test_winograd_kernel_cout_16(self):
+        """K1 at the DB head's db_c3 (32 -> 16 channels, 128x128, batch 2)
+        against the plain version on CPU copies."""
+        dev = _cuda()
+        x = torch.relu(torch.from_numpy(_normal(3, (2, 128, 128, 32)))).to(dev)
+        w = torch.from_numpy(_normal(4, (3, 3, 32, 16))
+                             * (2.0 / (9 * 32)) ** 0.5).to(dev)
+        b = torch.from_numpy(_normal(5, (16,))).to(dev)
+        got = winograd_conv2d(x, w, b, relu=True)
+        u = wg.transform_weights(w.cpu()).reshape(36, 32, 16)
+        want = winograd_tiles_plain(x.cpu(), u, b.cpu(), padding="SAME",
+                                    relu=True)
+        torch.testing.assert_close(got.cpu(), want, atol=2e-3, rtol=2e-3)
+
+    @pytest.mark.parametrize("precision", ["bfp", "f32"])
+    def test_resnet50_maps_batch_invariant(self, precision):
+        """ResNet-50 PixelLink (``configs.RESNET50`` at 128x128): an
+        image's maps are bit-equal alone and in a batch of 4.  Its seven
+        strided convs run through ``fuse.conv2d_nhwc`` (cuDNN, TF32 off,
+        one image at a time) and its 40 1x1 convs through K2 with one
+        image's K split."""
+        import dataclasses
+
+        _cuda()
+        from repro_torch.configs.pixellink_std import RESNET50
+        from repro_torch.models.fcn import DetectionModel, build_head
+
+        cfg = dataclasses.replace(RESNET50, image_size=(128, 128))
+        if precision == "f32":
+            cfg = dataclasses.replace(cfg, bfp=None, storage_fp16=False)
+        model = DetectionModel(cfg, build_head("pixellink"), "cuda")
+        params = model.init_params(torch.Generator().manual_seed(0))
+        if precision == "bfp":
+            params = model.normalize_weights(params)
+        x = torch.rand((4, 128, 128, 3),
+                       generator=torch.Generator().manual_seed(1)).cuda()
+        batch = model.apply(params, x)
+        for i in range(4):
+            alone = model.apply(params, x[i:i + 1])
+            for k in ("score", "links", "logits"):
+                assert torch.equal(batch[k][i:i + 1], alone[k]), (i, k)
+                assert bool(torch.isfinite(alone[k]).all())
+
+    @pytest.mark.parametrize("model", ["east", "db"])
+    def test_zoo_serving_on_card(self, model):
+        """EAST and DB served on the card (width 0.125, bfp): sequential,
+        pipelined and micro-batched boxes are equal, K1, K2 and K3 run
+        17 / 7 / 0 (EAST) or 18 / 8 / 1 (DB) times a batch, and EAST's
+        (score, geo) payload crosses to the host after the batch's event
+        equal to the device tensors; DB's device box tail gives its host
+        boxes."""
+        _cuda()
+        from repro_torch import kernels
+        from repro_torch.data.images import RequestStream
+        from repro_torch.launch.serve import STDService
+
+        images = RequestStream(6, seed=3,
+                               hw_range=((48, 64), (48, 128))).images()
+        geo = dict(width=0.125, buckets=(64, 128), max_batch=4,
+                   max_wait_ms=20, precision="bfp", model=model,
+                   score_thr=0.47 if model == "east" else 0.5,
+                   device="cuda")
+        svc = STDService(**geo)
+        single = [svc(img) for img in images]
+        assert svc.serve_pipelined(images) == single
+        kernels.reset_launch_counts()
+        assert svc.serve_batched(images) == single
+        n = len(svc.stats["batching"]["batches"])
+        per = (17, 7, 0) if model == "east" else (18, 8, 1)
+        counts = kernels.launch_counts()
+        assert (counts["winograd_tiles"], counts["bfp_matmul_quantized"],
+                counts["local_spread_converge"]) == tuple(p * n for p in per)
+        x, valid, _ = svc.preprocess(images[0])
+        pending, meta = svc._dispatch(x[None], [valid])
+        assert isinstance(meta[4], torch.cuda.Event)
+        payload = svc._finalize((pending, meta))[0]
+        if model == "east":
+            score, geo_map = payload
+            assert np.array_equal(score, pending[0][0].cpu().numpy())
+            assert np.array_equal(geo_map, pending[1][0].cpu().numpy())
+        else:
+            dev = STDService(**geo, postprocess="device",
+                             params=svc.factory.params(
+                                 (64, 64), "f32", "db"))
+            assert [dev(img) for img in images] == single
+
     def test_wrappers_count_one_launch_and_check_inputs(self):
         dev = _cuda()
         from repro_torch import kernels

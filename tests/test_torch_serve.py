@@ -82,13 +82,15 @@ def test_bfp_maps_within_tolerance_and_boxes_equal(requests):
 
 def test_unported_options_raise():
     kw = dict(width=0.125, buckets=BUCKETS, device="cpu")
-    for bad in (dict(model="east"), dict(model="db"),
-                dict(planner=object()), dict(tall_plan=object()),
+    for bad in (dict(planner=object()), dict(tall_plan=object()),
                 dict(plan=object())):
         with pytest.raises(NotImplementedError):
             STDService(**kw, **bad)
+    for model in ("east", "db"):
+        assert STDService(**kw, model=model).head.name == model
     for bad in (dict(model="craft"), dict(postprocess="gpu"),
                 dict(postprocess="device", boxes_capacity=0),
+                dict(model="east", postprocess="device"),
                 dict(max_batch=0), dict(inflight=-1)):
         with pytest.raises(ValueError):
             STDService(**kw, **bad)
