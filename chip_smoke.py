@@ -99,6 +99,22 @@ non-zero before the result line is printed.
    requests of 256-512 px, one by one and micro-batched (boxes equal,
    launches per batch EAST 17 / 7 / 0, DB 18 / 8 / 1), and for DB the
    device box tail too (boxes equal to the host tail's).
+3b. Execution plans (``phase_plans``), every mesh slot on cuda:0: on
+   VGG-16 and ResNet-50 at 512x512 bfp, batch 2, RowBand(2), RowBand(4),
+   DataParallel(2) and GridPlan(2x2), and RowBand(4) of a 256x512 plane
+   (two rows a band at stride 32, where a band's offset is not a
+   multiple of K1's 4-row tile), each held to SingleDevice's maps by the
+   map gate, with CC labels and boxes equal and one call's launches
+   counted from 0 (K1 17 and K2 7 or 40 per band and shard, K3 once, per
+   shard for DataParallel).  During one call of RowBand(4), of GridPlan
+   and of the 256-row RowBand(4) every K1 and K2 launch is also run
+   through its plain version on the same card tensors (K1 2e-3, K2
+   1e-4): the band-extended shapes only these plans make.  A word walk
+   names the first word whose band outputs are not bit-equal to the full
+   plane's.  An STDService with a 4-band tall plan and one with a Planner
+   serve a 2048x512 and a 512x2048 request, boxes equal to SingleDevice's
+   on the same padded plane.  Step times are host-clock medians of 3 with
+   all slots on one card, not multi-GPU speeds.
 4. LM serving at full width and depth: ``zamba2-2.7b`` (54 Mamba2 layers,
    one shared attention block at 9 sites, 2.42 B parameters) with seeded
    random bf16 weights drawn on the card, batch 4, 512-token prompts,
@@ -135,6 +151,7 @@ included) at batch 1 and 4 in phase 3 and over one prefill and one
 decode step of phase 4, and prints the device time by kernel and the
 device's busy share of each.
 """
+import contextlib
 import dataclasses
 import json
 import re
@@ -155,6 +172,8 @@ HBM_BYTES_S = 3.35e12   # H100 SXM device-memory rate
 SLEEP_CYCLES = 100_000_000   # ~50 ms of SM clock: the host queues meanwhile
 BATCH = 2
 HW = (512, 512)
+# K1 at conv1_2 on one band of RowBand(4): 128 rows and a 4-row halo each side
+BAND4_CONV1_2 = (BATCH, HW[0] // 4 + 8, HW[1], 64, 64)
 LM_BATCH, LM_PROMPT, LM_TOKENS = 4, 512, 32
 FCN_KERNELS = ("winograd_tiles", "bfp_matmul_quantized",
                "local_spread_converge")
@@ -178,6 +197,16 @@ K4_CASES = (
     ("tinyllama GQA ragged bf16", (1, 32, 4, 1000, 64), "bfloat16"),
     ("tinyllama GQA ragged f32", (1, 32, 4, 1000, 64), "float32"),
     ("mistral-nemo GQA bf16 D 128", (1, 32, 8, 1024, 128), "bfloat16"))
+
+
+def card_name_and_power() -> str:
+    """The first card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    if smi.returncode != 0 or not smi.stdout.strip():
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    return smi.stdout.strip().splitlines()[0]
 
 
 def fail(msg: str) -> None:
@@ -502,6 +531,12 @@ def phase_kernels(torch, np, profile=False):
         f"{total['library_ms']:.4f} ms (device "
         f"{total['library_device_ms']:.4f})")
     shapes[0]["sum_over_forward"] = total
+    # conv1_2 on one band of a 4-band RowBand plan: 128 rows extended by
+    # a 4-row halo on each side; its launches per forward are counted in
+    # phase_plans' RowBand(4) call (main fills them in)
+    shapes.append(k1_row(torch, gen, BAND4_CONV1_2, ["conv1_2"],
+                         label="4-band "))
+    shapes[-1]["launches_per_forward"] = None
     rows["winograd_tiles"] = shapes
 
     # K2 at every 1x1 conv of the program (merge1_c1, K = 128 + 512
@@ -1082,6 +1117,348 @@ def phase_zoo_serving(torch, np) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3b: execution plans on a mesh of slots, all on cuda:0
+# ---------------------------------------------------------------------------
+
+def _plan_launches(name: str, bands: int, shards: int, per_forward: dict):
+    """K1 and K2 run once per band and batch shard (each band runs the
+    whole program); K3 once per batch, once per shard for DataParallel
+    (its tail runs per shard)."""
+    k3 = shards if name.startswith("data_parallel") else 1
+    return {"winograd_tiles": per_forward["winograd_tiles"] * bands * shards,
+            "bfp_matmul_quantized":
+                per_forward["bfp_matmul_quantized"] * bands * shards,
+            "local_spread_converge": per_forward["local_spread_converge"]
+            * k3}
+
+
+def _plans(mesh_of):
+    """(name, plan, bands, batch shards) of phase_plans."""
+    from repro_torch.runtime.executor import DataParallel, GridPlan, RowBand
+
+    return (("row_band[model=2]", RowBand(mesh_of((1, 2))), 2, 1),
+            ("row_band[model=4]", RowBand(mesh_of((1, 4))), 4, 1),
+            ("data_parallel[data=2]", DataParallel(mesh_of((2, 1))), 1, 2),
+            ("grid[data=2,model=2]", GridPlan(mesh_of((2, 2))), 2, 2))
+
+
+def _median_step(torch, fn, *args) -> float:
+    steps = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        fn(*args)
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t0)
+    return statistics.median(steps) * 1e3
+
+
+def word_walk(torch, model, params, x, bands: int) -> str:
+    """Walk the full plane and ``bands`` row bands of it word by word on
+    the card (``FCNEngine.walk``'s trace) and name the first word whose
+    band outputs, stacked, are not bit-equal to the full plane's, with
+    the route it runs (K1, K2 or a torch/cuDNN op)."""
+    from repro_torch.core.interpreter import finish
+    from repro_torch.core.microcode import LayerType
+    from repro_torch.runtime.executor import drive_bands
+
+    eng, prog = model.engine, model.program
+    full, parts = {}, [{} for _ in range(bands)]
+    finish(eng.walk(params, x,
+                    trace=lambda i, y: full.__setitem__(i, y.clone())))
+    bh = x.shape[1] // bands
+    band = model.for_plane((bh, x.shape[2]), plane_bands=bands)
+    drive_bands([[(torch.device("cuda", 0), band.band_walk(
+        params, x[:, m * bh:(m + 1) * bh],
+        trace=lambda i, y, m=m: parts[m].__setitem__(i, y.clone())))
+        for m in range(bands)]])
+    differ = []
+    for idx in full:
+        got = torch.cat([p[idx] for p in parts], dim=1)
+        if not torch.equal(got, full[idx]):
+            d = float((got.float() - full[idx].float()).abs().max())
+            differ.append((idx, d))
+    if not differ:
+        return "every word bit-equal"
+    idx, d = differ[0]
+    mc, spec = prog.words[idx], prog.layer_specs[idx]
+    lt = LayerType(mc.layer_type)
+    if lt == LayerType.CONV:
+        route = ("K1" if eng._runs_k1(mc, spec) else "K2"
+                 if eng._runs_k2(mc, spec)
+                 else f"cuDNN conv {mc.kernel_size}x{mc.kernel_size}/"
+                      f"{mc.stride_n}")
+    elif lt == LayerType.UPSAMPLE:
+        route = "upsample (tap GEMMs)"
+    else:
+        route = lt.name.lower()
+    return (f"{len(differ)} of {len(full)} words differ; first word "
+            f"{idx} {prog.weight_bindings.get(idx, '')!r} ({route}), max "
+            f"|delta| {d:.4g}")
+
+
+@contextlib.contextmanager
+def checked_kernel_calls(torch, tally: dict):
+    """Within the block every K1 and K2 launch also runs the kernel's
+    plain version on the same card tensors and is held to it (K1 2e-3,
+    K2 1e-4: ``k1_row``'s and ``k2_rows``' tolerances); ``tally[kernel]
+    [shape]`` gathers ``[launches, max_abs_err]``.  The wrappers' own
+    launch counters are not touched."""
+    from repro_torch.kernels.bfp_matmul import ops as k2
+    from repro_torch.kernels.winograd_conv import ops as k1
+
+    kernel_k1, kernel_k2 = k1.winograd_tiles, k2.bfp_matmul_quantized
+
+    def note(name, key, got, want, tol):
+        err = float((got - want).abs().max())
+        if not torch.allclose(got, want, atol=tol, rtol=tol):
+            fail(f"{name} at {key}: kernel differs from plain (max abs "
+                 f"{err})")
+        entry = tally.setdefault(name, {}).setdefault(key, [0, 0.0])
+        entry[0] += 1
+        entry[1] = max(entry[1], err)
+
+    def checked_k1(x, u, b=None, *, padding="SAME", relu=False):
+        got = kernel_k1(x, u, b, padding=padding, relu=relu)
+        note("winograd_tiles", tuple(x.shape) + (u.shape[-1],), got,
+             k1.winograd_tiles_plain(x, u, b, padding=padding, relu=relu),
+             2e-3)
+        return got
+
+    def checked_k2(ma, ea, mb, eb, **geo):
+        got = kernel_k2(ma, ea, mb, eb, **geo)
+        note("bfp_matmul_quantized",
+             (ma.shape[0], ma.shape[1], mb.shape[1],
+              geo.get("split_rows", 0)), got,
+             k2.bfp_matmul_quantized_plain(
+                 ma, ea, mb, eb, block_size=geo["block_size"],
+                 mantissa_bits=geo["mantissa_bits"]), 1e-4)
+        return got
+
+    # the kernels' own bodies count on the module-level name
+    checked_k1.launches = checked_k2.launches = 0
+    k1.winograd_tiles, k2.bfp_matmul_quantized = checked_k1, checked_k2
+    try:
+        yield
+    finally:
+        k1.winograd_tiles, k2.bfp_matmul_quantized = kernel_k1, kernel_k2
+
+
+def _check_plan(torch, pp, what, fn, params, x, vq, single, gate, launches,
+                tally=None) -> dict:
+    """One plan against SingleDevice's result ``single`` (maps, labels,
+    boxes) on the same inputs: the first call (its band models are
+    built) runs under :func:`checked_kernel_calls` when ``tally`` is
+    given, whose launches must be the counted call's; the second is
+    counted from 0 and must launch ``launches``; maps within ``gate``,
+    labels and boxes equal.  Returns the counted launches."""
+    from repro_torch import kernels
+
+    want_maps, want_labels, want_boxes = single
+    if tally is None:
+        fn(params, x, vq)
+    else:
+        with checked_kernel_calls(torch, tally):
+            fn(params, x, vq)
+        seen = {k: sum(c for c, _ in v.values()) for k, v in tally.items()}
+        if any(seen.get(k, 0) != launches[k]
+               for k in ("winograd_tiles", "bfp_matmul_quantized")):
+            fail(f"{what}: checked call launched {seen}, not {launches}")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    labels, converged = fn(params, x, vq)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    want = dict.fromkeys(counts, 0)
+    want.update(launches)
+    if counts != want:
+        fail(f"{what}: launches {counts} != {want}")
+    if not bool(converged.all()):
+        fail(f"{what}: CC labelling did not converge")
+    maps = fn.forward(params, x)
+    d = {k: float((maps[k] - want_maps[k]).abs().max())
+         for k in ("score", "links", "logits")}
+    for k in ("score", "links"):
+        mean = float((maps[k] - want_maps[k]).abs().mean())
+        if d[k] > gate[0] or mean > gate[1]:
+            fail(f"{what}: {k} maps differ from SingleDevice's by "
+                 f"{d[k]:.4g} (mean {mean:.4g}) beyond {gate[0]:.4g} / "
+                 f"{gate[1]:.4g}")
+    if not torch.equal(labels, want_labels):
+        fail(f"{what}: CC labels differ from SingleDevice's")
+    boxes = [pp.boxes_from_labels(labels[i].cpu().numpy())
+             for i in range(labels.shape[0])]
+    if boxes != want_boxes:
+        fail(f"{what}: boxes differ from SingleDevice's")
+    ms = _median_step(torch, fn, params, x, vq)
+    bit = all(v == 0.0 for v in d.values())
+    checked = ""
+    if tally is not None:
+        checked = ", every K1 and K2 launch of its first call within the " \
+            f"plain version's tolerance ({_tally_text(tally)})"
+    log(f"{what}: launches {counts}, labels and {sum(map(len, boxes))} "
+        f"boxes equal SingleDevice's, map deltas (max) {d} "
+        f"({'bit-identical' if bit else 'not bit-identical'}; gate "
+        f"{gate[0]:.4g} / {gate[1]:.4g}){checked}, median step {ms:.2f} ms")
+    return counts
+
+
+def _tally_text(tally) -> str:
+    return "; ".join(
+        f"{k}: {sum(c for c, _ in v.values())} launches at {len(v)} shapes, "
+        f"max_abs_err {max(e for _, e in v.values()):.3g}"
+        for k, v in tally.items())
+
+
+def phase_plans(torch, np):
+    """RowBand (2 and 4 bands), DataParallel (2 shards) and GridPlan (2x2)
+    with every mesh slot on cuda:0, on full-width VGG-16 PixelLink and the
+    deployed ResNet-50 in bfp at 512x512, batch 2, and RowBand(4) of a
+    256x512 plane (band offsets of 2 rows at stride 32): each plan's maps
+    held to SingleDevice's by the map gate, CC labels and boxes equal,
+    launches counted from 0 around one call (K1 17 x bands x shards, K2 7
+    or 40 x bands x shards, K3 1, 2 for DataParallel's per-shard tail),
+    the K1 and K2 launches of one call of each RowBand(4) and of GridPlan
+    held to their plain versions (:func:`checked_kernel_calls`), and the
+    median step of 3 on the host clock.  Then an STDService with a 4-band
+    tall plan serves a 2048x512 request and a 512x2048 one (transposed),
+    boxes equal to the same factory's SingleDevice engine on the same
+    padded plane, and a service with a Planner over a (1, 4) mesh routes
+    them the same way.  Returns launches per path for the kernels line,
+    and the checked launches: ``{"rows": {kernel: [row, ...]},
+    "band_row_launches": K1 launches at BAND4_CONV1_2 in VGG-16's
+    RowBand(4) call}``."""
+    from repro_torch import kernels
+    from repro_torch.configs.pixellink_std import RESNET50, VGG16
+    from repro_torch.data.images import SyntheticSTDData
+    from repro_torch.launch.mesh import make_host_mesh, make_mesh
+    from repro_torch.launch.serve import STDService
+    from repro_torch.models.fcn import DetectionModel, build_head
+    from repro_torch.models.fcn import postprocess as pp
+    from repro_torch.runtime.executor import (EngineFactory, RowBand,
+                                              SingleDevice)
+    from repro_torch.runtime.planner import Planner
+
+    def on_card0(shape):
+        return make_host_mesh(shape, ("data", "model"), device="cuda:0")
+
+    log(f"plan step times below: host clock, median of 3, every mesh slot "
+        f"on one card ({card_name_and_power()}), so the slots run one "
+        f"after another: not multi-GPU speeds")
+
+    def inputs(hw, seed):
+        images = SyntheticSTDData(hw, seed=seed).sample(0, BATCH)["images"]
+        vq = torch.tensor([[hw[0] // 4, hw[1] // 4]] * BATCH,
+                          dtype=torch.int32, device="cuda")
+        return torch.from_numpy(images).cuda(), vq
+
+    by_path, tallies = {}, {}
+    unaligned = (256, 512)
+    for cfg, per_forward in ((VGG16, VGG_LAUNCHES),
+                             (RESNET50, RESNET_LAUNCHES)):
+        def make_model(hw, precision, model, cfg=cfg):
+            return DetectionModel(dataclasses.replace(cfg, image_size=hw),
+                                  build_head(model), "cuda")
+
+        factory = EngineFactory(make_model, device="cuda")
+        for hw, seed in ((HW, 0), (unaligned, 3)):
+            x, vq = inputs(hw, seed)
+            params = factory.params(hw, "bfp")
+            single = factory.plan_fn(hw, BATCH, SingleDevice(), "bfp")
+            want_maps = single.forward(params, x)
+            want_labels, _ = single(params, x, vq)
+            torch.cuda.synchronize()
+            gate = map_gate(cfg.backbone, want_maps["logits"])
+            want = (want_maps, want_labels,
+                    [pp.boxes_from_labels(want_labels[i].cpu().numpy())
+                     for i in range(BATCH)])
+            plane = f"{hw[0]}x{hw[1]}"
+            log(f"{cfg.name} {plane} SingleDevice: median step "
+                f"{_median_step(torch, single, params, x, vq):.2f} ms")
+            plans = list(_plans(on_card0))
+            if hw == unaligned:
+                plans = [p for p in plans if p[0] == "row_band[model=4]"]
+            elif torch.cuda.device_count() > 1:
+                plans.append(("row_band[model=2] across 2 cards",
+                              RowBand(make_mesh((1, 2), ("data", "model"))),
+                              2, 1))
+            for name, plan, bands, shards in plans:
+                what = f"{cfg.name} {plane} {name}"
+                tally = ({} if name in ("row_band[model=4]",
+                                        "grid[data=2,model=2]") else None)
+                by_path[f"{what} forward"] = _check_plan(
+                    torch, pp, what, factory.plan_fn(hw, BATCH, plan, "bfp"),
+                    params, x, vq, want, gate,
+                    _plan_launches(name, bands, shards, per_forward), tally)
+                if tally is not None:
+                    tallies[what] = tally
+            model = factory.model(hw, "bfp")
+            for bands in ((2, 4) if hw == HW else (4,)):
+                log(f"{cfg.name} {plane} word walk, {bands} bands against "
+                    f"the full plane: "
+                    f"{word_walk(torch, model, params, x, bands)}")
+    if torch.cuda.device_count() < 2:
+        log("RowBand(2) across two cards: skipped, "
+            f"torch.cuda.device_count() = {torch.cuda.device_count()}")
+    checked = {"rows": {}, "band_row_launches": tallies.get(
+        f"{VGG16.name} {HW[0]}x{HW[1]} row_band[model=4]", {}).get(
+        "winograd_tiles", {}).get(BAND4_CONV1_2, [0])[0]}
+    for what, tally in tallies.items():
+        for kernel, shapes in tally.items():
+            checked["rows"].setdefault(kernel, []).append(dict(
+                shape=f"{what}: its first call's {len(shapes)} shapes",
+                launches_per_forward=sum(c for c, _ in shapes.values()),
+                max_abs_err=max(e for _, e in shapes.values()),
+                checked_on="card"))
+
+    # over-tall and over-wide requests on a 4-band tall plan
+    geo = dict(width=1.0, precision="bfp", buckets=(128, 256, 512),
+               merge_ch=(128, 64, 32), device="cuda")
+    tall_img = SyntheticSTDData((2048, 512), seed=1).sample(0, 1)["images"][0]
+    wide_img = SyntheticSTDData((512, 2048), seed=2).sample(0, 1)["images"][0]
+    svc = STDService(**geo, tall_plan=RowBand(on_card0((1, 4))))
+    params = svc.factory.params(HW, "f32")
+    served = {}
+    for what, img in (("2048x512", tall_img), ("512x2048", wide_img)):
+        xp, valid, tr = svc.preprocess(img)
+        hw = xp.shape[:2]
+        if tr != (what == "512x2048") or hw != (2048, 512):
+            fail(f"tall plan, {what}: padded to {hw}, transposed {tr}")
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        boxes = svc(img)
+        dt = (time.perf_counter() - t0) * 1e3
+        by_path[f"tall plan {what} request"] = _checked_launches(
+            kernels, 1, f"tall plan, {what}",
+            _plan_launches("row_band", 4, 1, VGG_LAUNCHES))
+        ref = svc.factory.plan_fn(hw, 1, SingleDevice(), "bfp")(
+            svc.factory.params(hw, "bfp"),
+            torch.from_numpy(xp[None]).cuda(),
+            torch.tensor([[valid[0] // 4, valid[1] // 4]],
+                         dtype=torch.int32, device="cuda"))[0]
+        want = svc.postprocess(ref[0].cpu().numpy(), valid, tr)
+        if _box_keys([boxes]) != _box_keys([want]):
+            fail(f"tall plan, {what}: boxes differ from SingleDevice's on "
+                 f"the same {hw} plane")
+        served[what] = boxes
+        first = (" (its first call builds the band models)"
+                 if what == "2048x512" else "")
+        log(f"STDService(tall_plan=RowBand(4 slots on cuda:0)) {what}: "
+            f"padded to {hw}, transposed {tr}, {len(boxes)} boxes equal "
+            f"SingleDevice's on the same plane, {dt:.1f} ms{first}")
+    routed = STDService(**geo, params=params,
+                        planner=Planner(on_card0((1, 4))))
+    for what, img in (("2048x512", tall_img), ("512x2048", wide_img)):
+        if _box_keys([routed(img)]) != _box_keys([served[what]]):
+            fail(f"planner, {what}: boxes differ from the tall plan's")
+    log(f"STDService(planner=Planner((1, 4) mesh on cuda:0)): boxes equal "
+        f"the tall plan's; plan_choices {routed.stats['plan_choices']}")
+    if set(routed.stats["plan_choices"].values()) != {"row_band[model=4]"}:
+        fail(f"planner did not route the over-tall buckets to the 4-band "
+             f"plan: {routed.stats['plan_choices']}")
+    return by_path, checked
+
+
+# ---------------------------------------------------------------------------
 # phase 4: Zamba2-2.7B serving at full width and depth
 # ---------------------------------------------------------------------------
 
@@ -1326,11 +1703,21 @@ def main() -> None:
     timed("phase 3, serving", phase_serving, torch, np, profile=profile)
     zoo = timed("phase 3, EAST and DB serving", phase_zoo_serving, torch,
                 np)
+    plans, checked = timed("phase 3b, execution plans", phase_plans, torch,
+                           np)
+    for row in rows["winograd_tiles"]:
+        if row["launches_per_forward"] is None:
+            row["launches_per_forward"] = checked["band_row_launches"]
+    if checked["band_row_launches"] != 4:
+        fail(f"RowBand(4) launched K1 at {BAND4_CONV1_2} "
+             f"{checked['band_row_launches']} times, not once per band")
+    for name, extra in checked["rows"].items():
+        rows[name] += extra
     lm = timed("phase 4", phase_lm_serving, torch, profile=profile)
     timed("phase 5", phase_lm_parity, torch)
     launches = {k: fcn[k] for k in FCN_KERNELS}
     launches.update({k: lm[k] for k in LM_KERNELS})
-    by_path = {"pixellink_resnet50 forward": resnet, **zoo}
+    by_path = {"pixellink_resnet50 forward": resnet, **zoo, **plans}
 
     meta = {
         "winograd_tiles": ("src/repro_torch/csrc/winograd_conv.cu",
@@ -1361,13 +1748,9 @@ def main() -> None:
         })
         if name in sass:
             out[-1]["sass"] = sass[name]
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True)
-    if smi.returncode != 0 or not smi.stdout.strip():
-        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    card = card_name_and_power()
     print(json.dumps({"kernels": out}), flush=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

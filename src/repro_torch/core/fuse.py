@@ -129,6 +129,30 @@ def upsample2x_conv3x3_naive(x: torch.Tensor, w: torch.Tensor
     return conv2d_nhwc(zero_insert_2x(x), w, 1, "SAME")
 
 
+# pixels per tap-product GEMM: every call has this one shape
+UPSAMPLE_GEMM_ROWS = 2048
+
+
+def _tap_products(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(n, h, w, Cin) x (3, 3, Cin, Cout) -> (n, h, w, 3, 3, Cout): each
+    pixel times each tap.  The pixels go through GEMMs of one fixed shape
+    (``UPSAMPLE_GEMM_ROWS`` x Cin, the last zero-filled) on fresh
+    buffers, so the library picks one algorithm for all of them and a
+    pixel's products do not depend on how many pixels the call holds: a
+    row band gives its rows the full plane's bits, and a batch its
+    images the bits of serving them alone."""
+    n, h, wd, cin = x.shape
+    cout = w.shape[-1]
+    rows = n * h * wd
+    chunks = -(-rows // UPSAMPLE_GEMM_ROWS)
+    a = x.new_zeros((chunks * UPSAMPLE_GEMM_ROWS, cin))
+    a[:rows] = x.reshape(rows, cin)
+    wt = w.permute(2, 0, 1, 3).reshape(cin, 9 * cout).contiguous()
+    t = torch.cat([torch.matmul(c, wt)
+                   for c in a.split(UPSAMPLE_GEMM_ROWS)])
+    return t[:rows].reshape(n, h, wd, 3, 3, cout)
+
+
 def upsample2x_conv3x3_fused(x: torch.Tensor, w: torch.Tensor
                              ) -> torch.Tensor:
     """The phase-decomposed equivalent, 9 MACs per 4 outputs:
@@ -138,12 +162,23 @@ def upsample2x_conv3x3_fused(x: torch.Tensor, w: torch.Tensor
         z[2i+1, 2j]   = w[0,1] x[i,j] + w[2,1] x[i+1,j]
         z[2i+1, 2j+1] = w[0,0] x[i,j] + w[0,2] x[i,j+1]
                       + w[2,0] x[i+1,j] + w[2,2] x[i+1,j+1]
-    """
+
+    The nine tap products come from :func:`_tap_products`; the shifted
+    sums are elementwise, in the order written."""
     n, h, wd, _ = x.shape
-    p00 = conv2d_nhwc(x, w[1:2, 1:2], 1, "VALID")
-    p01 = conv2d_nhwc(x, w[1:2, 0::2], 1, ((0, 0), (0, 1)))
-    p10 = conv2d_nhwc(x, w[0::2, 1:2], 1, ((0, 1), (0, 0)))
-    p11 = conv2d_nhwc(x, w[0::2, 0::2], 1, ((0, 1), (0, 1)))
+    t = _tap_products(x, w)
+
+    def right(v):                  # v[i, j+1], zero past the last column
+        return F.pad(v[:, :, 1:], (0, 0, 0, 1))
+
+    def down(v):                   # v[i+1, j], zero past the last row
+        return F.pad(v[:, 1:], (0, 0, 0, 0, 0, 1))
+
+    p00 = t[..., 1, 1, :]
+    p01 = t[..., 1, 0, :] + right(t[..., 1, 2, :])
+    p10 = t[..., 0, 1, :] + down(t[..., 2, 1, :])
+    p11 = (t[..., 0, 0, :] + right(t[..., 0, 2, :])
+           + down(t[..., 2, 0, :]) + down(right(t[..., 2, 2, :])))
     top = torch.stack([p00, p01], dim=3)            # (n, h, w, 2, c)
     bot = torch.stack([p10, p11], dim=3)
     out = torch.stack([top, bot], dim=2)            # (n, h, 2, w, 2, c)

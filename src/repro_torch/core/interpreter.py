@@ -14,6 +14,13 @@ every stride-1 3x3 conv through K1 (``kernels/winograd_conv``), and in
 BFP precision every 1x1 stride-1 conv through K2 (``kernels/bfp_matmul``).
 On CPU tensors those wrappers run their plain torch versions.
 
+Row-banded execution (paper §IV.B across mesh slots): :meth:`FCNEngine.
+walk` is the interpreter loop as a generator; on one band of a plane it
+yields before every spatial layer whose window crosses band edges and
+takes back its input extended by the neighbours' rows, so the executor
+can drive the bands of a plane in lockstep and exchange rows between
+yields.  Unbanded, it never yields.
+
 BFP numerics (paper §III.E): with a :class:`BFPConfig`, conv inputs and
 weights go through Algorithm 1 before the MAC, the accumulator stays f32,
 and storage between layers is ``storage_dtype`` (FP16 in the paper).
@@ -34,6 +41,7 @@ from . import bfp as bfp_lib
 from . import fuse, winograd
 from .assembler import Program, STORAGE_BYTES
 from .microcode import ExtOp, LayerType, Microcode, ResOp
+from .rowband import layer_halo
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,7 +58,7 @@ class FCNEngine:
     def __init__(self, program: Program, mode: str = "reference",
                  bfp: Optional[BFPConfig] = None,
                  storage_dtype=torch.float32, use_kernels: bool = False,
-                 memplan=None):
+                 memplan=None, plane_bands: int = 1):
         if mode not in ("reference", "optimized"):
             raise ValueError(mode)
         if bfp is not None and not bfp.wide_accum:
@@ -60,6 +68,10 @@ class FCNEngine:
         self.bfp = bfp
         self.storage_dtype = storage_dtype
         self.use_kernels = use_kernels
+        # the program runs one of ``plane_bands`` row bands of a plane:
+        # K2 picks its K split from the whole plane's image rows, so a
+        # band's rows get the bits the full plane gives them
+        self.plane_bands = int(plane_bands)
         # memplan: None/False -> keep every buffer; True -> the static plan
         # of core.memplan (fusion facts, dead words, drop at last use)
         if memplan is True:
@@ -185,8 +197,8 @@ class FCNEngine:
             # a 1x1 conv is a matmul: K2 quantizes both operands along the
             # contraction dim (activations along channels, weights along
             # Cin, the same blocking as the roundtrip below); the K split
-            # is chosen for one image, so every batch size gives an image
-            # the same bits
+            # is chosen for one image of the whole plane, so every batch
+            # size and every band gives an image the same bits
             from repro_torch.kernels.bfp_matmul import bfp_matmul
 
             n, hh, ww, cin = x.shape
@@ -195,7 +207,8 @@ class FCNEngine:
                 w.to(torch.float32).reshape(cin, -1),
                 block_size=self.bfp.block_size,
                 mantissa_bits=self.bfp.mantissa_bits,
-                rounding=self.bfp.rounding, split_rows=hh * ww,
+                rounding=self.bfp.rounding,
+                split_rows=hh * ww * self.plane_bands,
             ).reshape(n, hh, ww, -1)
             return fuse.conv_epilogue(y, b, relu)
         if self.bfp is not None:
@@ -235,12 +248,46 @@ class FCNEngine:
             return fuse.upsample2x_conv3x3_fused(x, w)
         return fuse.upsample2x_conv3x3_naive(x, w)
 
+    # -- row-banded spatial execution (paper §IV.B across mesh slots) --------
+    @staticmethod
+    def _spatial(banded: bool, x, k: int, s: int, op, out_scale: int = 1,
+                 align: int = 1):
+        """One spatial layer; on a band, first take rows from the other
+        bands.  A generator: with ``banded`` and a window that crosses
+        band edges it yields ``(x, halo, align)`` and takes back ``(ext,
+        j)``: x extended by at least ``halo`` rows on each side, out to
+        plane rows at multiples of ``align``
+        (``runtime/collectives.halo_exchange``), and ``j``, where this
+        band's own rows start in ``ext``.  It applies the op with its
+        normal SAME padding and slices this band's output rows back out.
+        Its value is the layer's output."""
+        halo = layer_halo(k, s)
+        if not banded or halo == 0:
+            return op(x)
+        bh = x.shape[1]
+        ext, j = yield x, halo, align
+        y = op(ext)
+        j0 = j * out_scale // s
+        return y[:, j0:j0 + bh * out_scale // s]
+
     # -- the interpreter loop -------------------------------------------------
     @torch.no_grad()
-    def __call__(self, params, x: torch.Tensor, *, transposed: bool = False
-                 ) -> Dict[str, torch.Tensor]:
-        """x: (N, H, W, C) matching the program's input plane (or its
-        transpose with ``transposed=True``, paper §IV.B)."""
+    def walk(self, params, x: torch.Tensor, *, transposed: bool = False,
+             banded: bool = False, trace=None):
+        """The program over ``x`` as a generator whose value is the output
+        dict.  Unbanded it never yields.  With ``banded``, ``x`` is one
+        horizontal band of a larger plane and the walk yields ``(x,
+        halo, align)`` before every spatial layer whose window crosses
+        band edges, expecting ``x`` extended by the neighbouring bands'
+        rows (zeros beyond the plane) in return (:meth:`_spatial`); a
+        3x3 stride-1 conv asks for its extension to reach plane rows at
+        multiples of the Winograd tile (4), so its tiles are the full
+        plane's wherever the band starts.  The bands
+        of one plane walk the program in lockstep: the executor advances
+        one walk per band and exchanges rows between yields
+        (``runtime/executor.py``).  ``trace(idx, y)``, when given, sees
+        each word's stored output (a word walk of band against full
+        plane)."""
         prog = self.program
         c0, h0, w0 = prog.input_shape_chw
         want = (w0, h0, c0) if transposed else (h0, w0, c0)
@@ -282,14 +329,24 @@ class FCNEngine:
                 eligible = (wp.fuse_relu if wp is not None
                             else fuse.can_fuse_conv_epilogue(mc))
                 fused_relu = self.mode == "optimized" and eligible
-                y = self._conv(xin, p, mc, spec, transposed=transposed,
-                               relu=fused_relu)
+                tiled = mc.kernel_size == 3 and mc.stride_n == 1
+                y = yield from self._spatial(
+                    banded, xin, mc.kernel_size, mc.stride_n,
+                    lambda xb: self._conv(xb, p, mc, spec,
+                                          transposed=transposed,
+                                          relu=fused_relu),
+                    align=winograd.TILE_OUT if tiled else 1)
             elif lt == LayerType.POOL:
-                y = self._pool(xin, mc, spec)
+                y = yield from self._spatial(
+                    banded, xin, 2 if mc.kernel == 0 else 3, mc.stride_n,
+                    lambda xb: self._pool(xb, mc, spec))
             elif lt == LayerType.UPSAMPLE:
-                y = self._upsample(xin, p, spec,
-                                   wp.fuse_upsample if wp is not None
-                                   else None)
+                up_conv = (wp.fuse_upsample if wp is not None
+                           else spec.upsample_mode != "nearest")
+                y = yield from self._spatial(
+                    banded, xin, 3 if up_conv else 1, 1,
+                    lambda xb: self._upsample(xb, p, spec, up_conv),
+                    out_scale=2)
             else:
                 op = ExtOp(mc.ext_opcode)
                 if op == ExtOp.SIGMOID:
@@ -311,6 +368,8 @@ class FCNEngine:
                 y = torch.relu(y)
             # write back in storage precision (FP16 in the paper)
             y = y.to(self.storage_dtype)
+            if trace is not None:
+                trace(idx, y)
             if wp is None or wp.store:
                 arena[mc.out_addr] = y
                 h, w, c = prog.addr_shapes[mc.out_addr]
@@ -322,6 +381,24 @@ class FCNEngine:
                 if wp.drop_cache:
                     cache = None
         return {k: arena[a] for k, a in prog.outputs.items()}
+
+    @torch.no_grad()
+    def __call__(self, params, x: torch.Tensor, *, transposed: bool = False
+                 ) -> Dict[str, torch.Tensor]:
+        """x: (N, H, W, C) matching the program's input plane (or its
+        transpose with ``transposed=True``, paper §IV.B)."""
+        return finish(self.walk(params, x, transposed=transposed))
+
+
+def finish(walk):
+    """The value of a walk that must not yield (an unbanded one)."""
+    try:
+        request = next(walk)
+    except StopIteration as stop:
+        return stop.value
+    walk.close()
+    raise RuntimeError(f"an unbanded walk asked for a halo exchange "
+                       f"({request[1]} rows)")
 
 
 # ---------------------------------------------------------------------------

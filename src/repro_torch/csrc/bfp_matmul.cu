@@ -79,6 +79,7 @@ constexpr int STAGES = 2;       // mantissa tiles: double-buffered
 constexpr int THREADS = 128;    // four warps
 constexpr int LDF = TK + 4;     // f32 tile row stride (floats)
 constexpr int SMEM_MAX = 232448;
+constexpr int MAX_DEVICES = 64;
 
 __device__ __forceinline__ float exp2i(int e) {
   e = min(max(e, -126), 127);
@@ -358,14 +359,19 @@ int launch(const int16_t* ma, const int* ea, const int16_t* mb, const int* eb,
   const int KB = (K + block_size - 1) / block_size;
   const size_t smem = smem_bytes(TM, TN, KB);
   if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
-  static size_t configured = 0;     // the largest size set so far
+  // the largest size set so far on each device: the attribute belongs
+  // to the current device's context, and a mesh launches on several
+  static size_t configured[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
   cudaError_t err;
-  if (smem > configured) {
+  if (smem > configured[dev]) {
     err = cudaFuncSetAttribute(bfp_matmul_kernel<TM, TN, WM, S, X3>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return (int)err;
-    configured = smem;
+    configured[dev] = smem;
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((M + TM - 1) / TM, (N + TN - 1) / TN, S);

@@ -63,6 +63,7 @@ using namespace tf32x3;
 
 constexpr int BK = 8;        // input channels per step
 constexpr int SMEM_MAX = 232448;
+constexpr int MAX_DEVICES = 64;
 
 // A block: TR x TC output tiles x 8 WN output channels; 16-tile groups x
 // WN channel groups x two halves of the 36 positions, one warp each
@@ -349,13 +350,18 @@ int launch(const float* x, const float* u, const float* bias, float* out,
            long blocks, int H, int W, int cin, int cout, int pad, int out_h,
            int out_w, int th, int tw, int relu, cudaStream_t stream) {
   using G = Geo<TR, TC, WN>;
-  static bool configured = false;
-  if (!configured) {
+  // the attribute belongs to the current device's context: set it once
+  // per device, so that a mesh of cards can launch on each
+  static bool configured[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (!configured[dev]) {
     cudaError_t err = cudaFuncSetAttribute(
         winograd_fused_kernel<TR, TC, WN>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)G::SMEM);
     if (err != cudaSuccess) return (int)err;
-    configured = true;
+    configured[dev] = true;
   }
   if (blocks > 0x7fffffffL) return (int)cudaErrorInvalidValue;
   winograd_fused_kernel<TR, TC, WN><<<(unsigned)blocks, G::THREADS, G::SMEM,

@@ -43,9 +43,19 @@ per-image activation peaks (``core.memplan``) fit the budget, and
 
 ``model=`` picks the detection head from ``MODEL_ZOO``: ``"pixellink"``
 (the default), ``"east"`` (host box tail only: its payload is a score
-and a geometry map, no label map) or ``"db"``.  The cost-model planner,
-``tall_plan`` and every plan but ``SingleDevice`` are not ported yet:
-asking for them raises ``NotImplementedError``.
+and a geometry map, no label map) or ``"db"``.
+
+Plan routing (``runtime/executor.py``): either fixed rules, the service
+``plan`` for every bucket and ``tall_plan`` for images taller than the
+largest bucket, or a cost-model ``planner`` (``runtime/planner.Planner``)
+that picks a plan per bucket from FLOPs, halo bytes and batch-split
+occupancy (``stats["plan_choices"]``), over-tall buckets restricted to
+the row-banded plans.  With ``measured_routing`` the planner reads this
+service's measured step walls from the book (``MeasuredCost``).  With a
+row-banded route configured, over-tall heights are padded to the band
+unit and over-wide images are transposed onto it (paper §IV.B).  A plan
+that splits the batch pads each batch to its data-axis multiple, which
+``max_batch`` must be a multiple of.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
         --width 0.125 --batched --postprocess device
@@ -67,12 +77,16 @@ from repro_torch.launch.batching import (LatencyRecorder, MicroBatcher,
                                          round_batch)
 from repro_torch.runtime.executor import (
     EngineFactory,
+    ExecutionPlan,
     SingleDevice,
-    check_plan,
+    band_height_unit,
     check_precision,
+    describe_plan,
+    plan_batch_multiple,
     plan_kind,
 )
 from repro_torch.runtime.pipeline import HostPipeline
+from repro_torch.runtime.planner import Planner, features_for_program
 from repro_torch.runtime.telemetry import CostBook, prometheus_text
 
 MAX_WIDTH = 4096          # the paper's width limit
@@ -96,17 +110,9 @@ def bucket_hw(h: int, w: int, buckets: Tuple[int, ...]) -> Tuple[int, int]:
     return one(h), one(w)
 
 
-def _not_ported(**options) -> None:
-    for name, value in options.items():
-        if value:
-            raise NotImplementedError(
-                f"STDService option {name}={value!r} is not ported to "
-                f"repro_torch yet")
-
-
 class STDService:
-    """Bucketed STD serving on one device (``"cuda"`` by default):
-    sequential, pipelined and micro-batched."""
+    """Bucketed STD serving (on ``"cuda"`` by default, and on a mesh with
+    a multi-device plan): sequential, pipelined and micro-batched."""
 
     def __init__(self, width: float = 0.25, mode: str = "optimized",
                  buckets: Tuple[int, ...] = (64, 128, 256),
@@ -114,9 +120,12 @@ class STDService:
                  max_batch: int = 8, max_wait_ms: float = 5.0,
                  batch_round: str = "pow2",
                  engine_cache_capacity: int = 16,
-                 plan=None, tall_plan=None, planner=None,
+                 plan: Optional[ExecutionPlan] = None,
+                 tall_plan: Optional[ExecutionPlan] = None,
+                 planner: Optional[Planner] = None,
                  max_pending: int = 0, admission: str = "block",
                  inflight: int = 1, book: Optional[CostBook] = None,
+                 measured_routing: bool = True,
                  precision: str = "f32", postprocess: str = "host",
                  boxes_capacity: int = 256, model: str = "pixellink",
                  memplan: bool = True,
@@ -139,9 +148,28 @@ class STDService:
             raise ValueError("boxes_capacity must be >= 1")
         if inflight < 0:
             raise ValueError("inflight must be >= 0")
-        _not_ported(tall_plan=tall_plan, planner=planner)
-        if plan is not None:
-            check_plan(plan)
+        self.plan: ExecutionPlan = plan if plan is not None else SingleDevice()
+        plan_kind(self.plan)
+        if tall_plan is not None:
+            plan_kind(tall_plan)
+        if planner is not None and not isinstance(planner, Planner):
+            raise TypeError(f"planner must be a Planner, got {planner!r}")
+        self.tall_plan = tall_plan
+        self.planner = planner
+        m = plan_batch_multiple(self.plan)
+        if tall_plan is not None:
+            m = max(m, plan_batch_multiple(tall_plan))
+        if planner is not None:
+            # the planner may route any bucket to a data-parallel or grid
+            # plan, whose padded batches must stay within max_batch
+            m = max(m, planner.data_n)
+        if max_batch % m:
+            raise ValueError(
+                f"max_batch={max_batch} must be a multiple of the plan's "
+                f"data-parallel width {m}, or padded batches would exceed "
+                f"the configured maximum")
+        self._batch_multiple = m
+        self._mode = mode
         self.model_name = check_model(model)
         self.head = build_head(model, score_thr=score_thr, link_thr=link_thr)
         if postprocess == "device" and \
@@ -153,7 +181,6 @@ class STDService:
         self.postprocess_mode = postprocess
         self.boxes_capacity = boxes_capacity
         self.precision = check_precision(precision)
-        self.plan = SingleDevice()
         self.buckets = buckets
         self.max_batch = max_batch
         self.max_wait_ms = max_wait_ms
@@ -191,6 +218,16 @@ class STDService:
                              if self.device.type == "cuda" else None)
         if params is not None:
             self.factory.set_params(params, self.model_name)
+        if planner is not None:
+            planner.bind_features(self._plan_features,
+                                  model=self.model_name)
+            if measured_routing:
+                # combos this service has run route by their measured
+                # step walls, read from its own precision's and model's
+                # series
+                planner.use_measurements(self.book,
+                                         precision=self.precision,
+                                         model=self.model_name)
         self.stats: Dict[str, Any] = {"n": 0, "latency_s": [],
                                       "transposed": 0, "plan_choices": {},
                                       "nonconverged": 0, "pp_overflow": 0}
@@ -214,22 +251,76 @@ class STDService:
 
             per_image = self.factory.memplan(
                 hw, self.precision, self.model_name).peak_bytes
-            cap = admissible_batch(per_image, self.activation_budget_bytes)
+            cap = admissible_batch(per_image, self.activation_budget_bytes,
+                                   multiple=self._batch_multiple)
             self._bucket_caps[hw] = cap
         return cap
+
+    # -- plan routing ---------------------------------------------------------
+    def _plan_features(self, hw: Tuple[int, int]):
+        """Cost-model features of one bucket, from the program its engine
+        runs (this service's model and precision)."""
+        model = self.factory.model(tuple(hw), self.precision,
+                                   self.model_name)
+        return features_for_program(
+            model.program,
+            self.factory.deepest_stride(tuple(hw), self.precision,
+                                        self.model_name),
+            mode=self._mode)
+
+    def _plan_for(self, hw: Tuple[int, int], batch: int = 1
+                  ) -> ExecutionPlan:
+        """With a planner, every bucket routes by estimated (or measured)
+        step cost, over-tall ones (taller than the largest bucket) to the
+        row-banded kinds where the mesh has them.  Without one, over-tall
+        buckets go to ``tall_plan`` when set, the rest to ``plan``."""
+        over_tall = hw[0] > max(self.buckets)
+        if self.planner is not None:
+            plan = self.planner.choose(hw, batch, force_banded=over_tall,
+                                       model=self.model_name)
+            with self._lock:
+                self.stats["plan_choices"][tuple(hw)] = describe_plan(plan)
+            return plan
+        if self.tall_plan is not None and over_tall:
+            return self.tall_plan
+        return self.plan
+
+    def _routes_banded(self) -> bool:
+        """Whether over-tall and over-wide images can ride a row-banded
+        plan (the fixed tall_plan rule or planner routing)."""
+        return self.tall_plan is not None or self.planner is not None
+
+    def _tall_height(self, bh: int) -> int:
+        """Padded height of an over-tall image headed for a row-banded
+        plan: rounded up to bands x deepest cumulative stride, so that
+        every band divides evenly through the stride pyramid."""
+        top = max(self.buckets)
+        deepest = self.factory.deepest_stride((top, top), self.precision,
+                                              self.model_name)
+        if self.planner is not None:
+            unit = self.planner.height_unit(deepest)
+        else:
+            unit = band_height_unit(self.tall_plan, deepest)
+        return -(-bh // unit) * unit
 
     # -- stages ---------------------------------------------------------------
     def preprocess(self, img: np.ndarray):
         """Random-size handling: transpose trick + bucket padding."""
         h, w = img.shape[:2]
         transposed = False
-        if w > MAX_WIDTH >= h:
+        # paper §IV.B over-wide rule; with a row-banded route configured
+        # any image wider than the largest bucket turns over-tall and
+        # rides that route
+        if w > MAX_WIDTH >= h or (
+                self._routes_banded() and w > max(self.buckets) >= h):
             img = np.transpose(img, (1, 0, 2))
             h, w = w, h
             transposed = True
             with self._lock:
                 self.stats["transposed"] += 1
         bh, bw = bucket_hw(h, w, self.buckets)
+        if self._routes_banded() and bh > max(self.buckets):
+            bh = self._tall_height(bh)
         pad = np.zeros((bh, bw, 3), np.float32)
         pad[:h, :w] = img
         return pad, (h, w), transposed
@@ -242,8 +333,8 @@ class STDService:
 
     def _dispatch(self, stack: np.ndarray,
                   valid_hws: List[Tuple[int, int]]):
-        """Pad the batch and queue its work: returns the pending device
-        tuple ``(*payload, converged)`` of the head (``(labels,
+        """Route and pad the batch and queue its work: returns the pending
+        device tuple ``(*payload, converged)`` of the head (``(labels,
         converged)`` for the CC heads), with the compact ``(rows,
         counts)`` boxes appended on the device route, and the meta ``(hw,
         batch, kind, t0, event)`` the completion path takes (``event`` is
@@ -251,6 +342,9 @@ class STDService:
         hw = tuple(stack.shape[1:3])
         n_live = len(valid_hws)
         b = round_batch(n_live, self._bucket_cap(hw), self.batch_round)
+        plan = self._plan_for(hw, b)
+        m = plan_batch_multiple(plan)
+        b = -(-b // m) * m
         if b > n_live:
             stack = np.concatenate(
                 [stack, np.zeros((b - n_live,) + stack.shape[1:],
@@ -258,7 +352,7 @@ class STDService:
         valid_q = np.zeros((b, 2), np.int32)
         for i, (vh, vw) in enumerate(valid_hws):
             valid_q[i] = (vh // 4, vw // 4)
-        fn = self.factory.plan_fn(hw, b, self.plan, self.precision,
+        fn = self.factory.plan_fn(hw, b, plan, self.precision,
                                   self.model_name)
         params = self.factory.params(hw, self.precision, self.model_name)
         t0 = time.perf_counter()
@@ -273,7 +367,7 @@ class STDService:
         if self.device.type == "cuda":
             event = torch.cuda.Event()
             event.record()
-        return pending, (hw, b, plan_kind(self.plan), t0, event)
+        return pending, (hw, b, plan_kind(plan), t0, event)
 
     def _to_host(self, tensors, event) -> List[np.ndarray]:
         """Copy device tensors to the host once the batch's event has
@@ -394,6 +488,7 @@ class STDService:
             n = self.stats["n"]
             lat = list(self.stats["latency_s"])
             transposed = self.stats["transposed"]
+            choices = dict(self.stats["plan_choices"])
             mb_snap = self.stats.get("batching_snapshot")
             batcher = self._batcher
         out["std_requests_total"] = float(n)
@@ -403,6 +498,9 @@ class STDService:
                 np.percentile(lat, 50) * 1e3)
             out["std_request_latency_p99_ms"] = float(
                 np.percentile(lat, 99) * 1e3)
+        for hw, desc in sorted(choices.items()):
+            out[f'std_plan_choice{{bucket="{hw[0]}x{hw[1]}",'
+                f'plan="{desc}"}}'] = 1.0
         if batcher is not None:
             mb_snap = batcher.stats_snapshot()
         for k, v in (mb_snap or {}).items():
@@ -439,12 +537,15 @@ class STDService:
     def measure_engine_memory(self, hw: Tuple[int, int],
                               batch: Optional[int] = None) -> Dict[str, Any]:
         """Measure one bucket engine's memory at ``batch`` (default: the
-        bucket's cap); see ``EngineFactory.measure_engine_memory``.  The
+        bucket's cap), rounded to the batch multiple, under the plan
+        routing picks; see ``EngineFactory.measure_engine_memory``.  The
         row lands in the ``std_engine_*_bytes`` gauges."""
         hw = tuple(hw)
         b = int(batch) if batch is not None else self._bucket_cap(hw)
+        m = self._batch_multiple
+        b = -(-b // m) * m
         return self.factory.measure_engine_memory(
-            hw, b, self.plan, self.precision, self.model_name)
+            hw, b, self._plan_for(hw, b), self.precision, self.model_name)
 
     def __call__(self, img: np.ndarray) -> List[Dict]:
         t0 = time.perf_counter()

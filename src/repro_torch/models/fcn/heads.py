@@ -18,6 +18,7 @@ oracle for its serving decode.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -387,12 +388,16 @@ class DetectionModel:
 
     ``cfg`` carries the STDConfig fields (backbone, width, image_size,
     merge_ch, upsample_mode, mode, bfp, storage_fp16, use_kernels,
-    memplan).  Parameters and activations live on ``device``."""
+    memplan).  Parameters and activations live on ``device``.  A model
+    with ``plane_bands`` > 1 runs one of that many row bands of a larger
+    plane (:meth:`for_plane`, :meth:`band_walk`)."""
 
-    def __init__(self, cfg, head: DetectionHead, device="cuda"):
+    def __init__(self, cfg, head: DetectionHead, device="cuda",
+                 plane_bands: int = 1):
         self.cfg = cfg
         self.head = head
         self.device = resolve_device(device)
+        self.plane_bands = int(plane_bands)
         h, w = cfg.image_size
         specs, taps = bb.BACKBONES[cfg.backbone](cfg.width)
         fspecs, fout = fusion.east_merge(taps, cfg.merge_ch,
@@ -404,10 +409,22 @@ class DetectionModel:
             self.program, mode=cfg.mode, bfp=cfg.bfp,
             storage_dtype=torch.float16 if cfg.storage_fp16 else torch.float32,
             use_kernels=cfg.use_kernels, memplan=cfg.memplan,
+            plane_bands=plane_bands,
         )
 
     def init_params(self, generator: torch.Generator):
         return self.engine.init_params(generator, self.device)
+
+    def for_plane(self, image_size: Tuple[int, int], device=None,
+                  plane_bands: int = 1) -> "DetectionModel":
+        """The same architecture assembled for another input plane, on
+        ``device`` (default: this model's); fully convolutional, so the
+        parameters carry over 1:1.  The row-band plans build their
+        band-plane program this way, with ``plane_bands`` bands."""
+        return DetectionModel(
+            dataclasses.replace(self.cfg, image_size=tuple(image_size)),
+            self.head, self.device if device is None else device,
+            plane_bands)
 
     def normalize_weights(self, params):
         return self.engine.normalize_weights(params)
@@ -421,6 +438,16 @@ class DetectionModel:
         images = torch.as_tensor(images, dtype=torch.float32,
                                  device=self.device)
         raw = self.engine(params, images, transposed=transposed)
+        return self.head.model_outputs(raw)
+
+    def band_walk(self, params, images: torch.Tensor, trace=None):
+        """One row band's forward pass as a generator (``FCNEngine.walk``
+        with ``banded=True``): it yields ``(x, halo)`` at each halo
+        exchange and its value is the band's named maps + logits."""
+        images = torch.as_tensor(images, dtype=torch.float32,
+                                 device=self.device)
+        raw = yield from self.engine.walk(params, images, banded=True,
+                                          trace=trace)
         return self.head.model_outputs(raw)
 
     def microcode_bytes(self) -> np.ndarray:

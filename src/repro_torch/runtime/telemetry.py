@@ -12,15 +12,23 @@ one lock.  :meth:`CostBook.snapshot` and :func:`prometheus_text` export
 it all in a flat, scrapeable form (labels embedded Prometheus-style in
 the metric names), which ``STDService.metrics_snapshot()`` serves.
 
-The cost-model calibration that reads the book (``fit_cost_params`` and
-its JSON I/O) belongs to the planner, which is not ported yet.
+Calibration: the analytic step cost (``runtime/planner.step_cost``) is
+linear in five of the :class:`~repro_torch.runtime.planner.CostParams`
+constants, so :func:`fit_cost_params` solves for them by least squares
+from measured :class:`StepMeasurement` rows; :func:`save_cost_params` and
+:func:`load_cost_params` round-trip the fit through JSON exactly, in the
+JAX package's format.  The planner reads the book duck-typed
+(``MeasuredCost``) and this module imports the planner only inside the
+calibration functions, so the layering stays one-directional.
 """
 from __future__ import annotations
 
+import dataclasses
+import json
 import math
 import threading
 from collections import deque
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
 StepKey = Tuple[Tuple[int, int], int, str]
 
@@ -276,3 +284,125 @@ def prometheus_text(metrics: Dict[str, float]) -> str:
         v = metrics[name]
         lines.append(f"{name} {float(v):.9g}")
     return "\n".join(lines) + ("\n" if lines else "")
+
+
+# -- calibration ---------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class StepMeasurement:
+    """One calibration row: the cost-model inputs of a measured step.
+
+    ``flops``/``halo_bytes``/``halo_layers`` come from the bucket's
+    PlanFeatures, ``kind``/``batch``/``data_n``/``model_n`` describe
+    how it ran, ``seconds`` is the measured (blocked-until-ready) step
+    wall time."""
+
+    flops: float
+    halo_bytes: float
+    halo_layers: int
+    kind: str
+    batch: int
+    data_n: int
+    model_n: int
+    seconds: float
+
+
+def _design_row(m: StepMeasurement) -> List[float]:
+    """The analytic step cost is linear in
+    ``x = (1/peak_flops, 1/ici_bw, dispatch_overhead_s,
+    collective_overhead_s, halo_launch_s)``; this is one row of the
+    design matrix, mirroring runtime/planner.step_cost term for term."""
+    from repro_torch.runtime.planner import PLAN_KINDS, _BANDED, padded_batch
+
+    if m.kind not in PLAN_KINDS:
+        raise ValueError(f"unknown plan kind {m.kind!r}")
+    dn = m.data_n if m.kind in ("data_parallel", "grid") else 1
+    mn = m.model_n if m.kind in _BANDED else 1
+    local_b = padded_batch(m.batch, dn) // dn
+    return [
+        m.flops * local_b / mn,                       # 1/peak_flops
+        m.halo_bytes * local_b if mn > 1 else 0.0,    # 1/ici_bw
+        1.0,                                          # dispatch_overhead_s
+        float((dn > 1) + (mn > 1)),                   # collective_overhead_s
+        float(m.halo_layers) if mn > 1 else 0.0,      # halo_launch_s
+    ]
+
+
+def fit_cost_params(measurements: Iterable[StepMeasurement], *,
+                    base: Optional[Any] = None):
+    """Least-squares fit of the CostParams constants from measured step
+    times.  Columns the sweep never exercised (e.g. no banded combos on
+    a unit mesh leave every halo entry zero) are unidentifiable and
+    keep ``base``'s value (default: the napkin CostParams()); fitted
+    rate constants are clamped positive so 1/x stays finite."""
+    import numpy as np
+
+    from repro_torch.runtime.planner import CostParams
+
+    base = base if base is not None else CostParams()
+    measurements = list(measurements)      # may be a single-pass iterable
+    rows = [_design_row(m) for m in measurements]
+    if not rows:
+        return base
+    y = np.asarray([m.seconds for m in measurements], dtype=np.float64)
+    A = np.asarray(rows, dtype=np.float64)
+    identifiable = np.any(A != 0.0, axis=0)
+    x = np.zeros(A.shape[1])
+    if identifiable.any():
+        sol, *_ = np.linalg.lstsq(A[:, identifiable], y, rcond=None)
+        x[identifiable] = sol
+    base_x = np.asarray([
+        1.0 / base.peak_flops, 1.0 / base.ici_bw,
+        base.dispatch_overhead_s, base.collective_overhead_s,
+        base.halo_launch_s,
+    ])
+    # unidentifiable -> base; identifiable but non-positive (noise drove
+    # the fit through zero) -> base as well, never a negative rate
+    for i in range(5):
+        if not identifiable[i] or x[i] <= 0.0:
+            x[i] = base_x[i]
+    return CostParams(
+        peak_flops=float(1.0 / x[0]),
+        ici_bw=float(1.0 / x[1]),
+        dispatch_overhead_s=float(x[2]),
+        collective_overhead_s=float(x[3]),
+        halo_launch_s=float(x[4]),
+    )
+
+
+def cost_params_to_dict(params) -> Dict[str, float]:
+    return {k: float(v) for k, v in dataclasses.asdict(params).items()}
+
+
+def cost_params_from_dict(d: Dict[str, float]):
+    from repro_torch.runtime.planner import CostParams
+
+    fields = {f.name for f in dataclasses.fields(CostParams)}
+    unknown = set(d) - fields
+    if unknown:
+        raise ValueError(f"unknown CostParams fields {sorted(unknown)}")
+    return CostParams(**{k: float(v) for k, v in d.items()})
+
+
+def save_cost_params(params, path: str, *,
+                     measurements: Sequence[StepMeasurement] = (),
+                     meta: Optional[Dict[str, Any]] = None) -> None:
+    """Fitted params (+ provenance: the measurement rows and free-form
+    meta) to JSON; :func:`load_cost_params` round-trips exactly."""
+    doc = {
+        "cost_params": cost_params_to_dict(params),
+        "measurements": [dataclasses.asdict(m) for m in measurements],
+        "meta": dict(meta or {}),
+    }
+    with open(path, "w") as f:
+        json.dump(doc, f, indent=2, sort_keys=True)
+        f.write("\n")
+
+
+def load_cost_params(path: str):
+    """CostParams back from a ``save_cost_params`` JSON file (also
+    accepts a bare ``{field: value}`` dict for hand-written files)."""
+    with open(path) as f:
+        doc = json.load(f)
+    d = doc.get("cost_params", doc) if isinstance(doc, dict) else doc
+    return cost_params_from_dict(d)

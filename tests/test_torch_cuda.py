@@ -552,3 +552,207 @@ class TestOnCard:
         counts = kernels.launch_counts()
         assert counts["flash_attention_padded"] == 1
         assert counts["ssd_chunk"] == 1
+
+    # -- execution plans: band-extended shapes and plans on one card ------
+    @pytest.mark.parametrize("shape", [
+        (2, 136, 512, 64, 64),     # conv1_2, one band of 4 of a 512 plane
+        (2, 40, 64, 512, 512),     # conv5_1, one band of 4: 8 + 2 x 4 rows
+        (1, 72, 128, 128, 128)])   # ResNet-50 s1, one band of 2 at 256
+    def test_winograd_kernel_band_shapes(self, shape):
+        """K1 at shapes only the row-banded plans give it (a band plus a
+        4-row halo on each side), against its plain version on the card."""
+        dev = _cuda()
+        n, h, w, cin, cout = shape
+        x = torch.from_numpy(_normal(h, (n, h, w, cin))).to(dev)
+        k = torch.from_numpy(_normal(w, (3, 3, cin, cout))
+                             * (2.0 / (9 * cin)) ** 0.5).to(dev)
+        b = torch.from_numpy(_normal(cout, (cout,))).to(dev)
+        got = winograd_conv2d(x, k, b, relu=True)
+        u = wg.transform_weights(k).reshape(36, cin, cout)
+        want = winograd_tiles_plain(x, u, b, padding="SAME", relu=True)
+        torch.testing.assert_close(got, want, atol=2e-3, rtol=2e-3)
+
+    @pytest.mark.parametrize("shape,bands", [
+        ((2, 128, 128, 128, 256), 4),  # full plane 16-warp blocks, bands 8
+        ((2, 64, 64, 512, 512), 2),    # 8-warp blocks both
+        ((1, 256, 128, 64, 64), 4),
+        ((2, 8, 16, 512, 512), 4)])    # 2 rows a band: offsets off the tiles
+    def test_winograd_band_rows_equal_full_plane(self, shape, bands):
+        """K1 on each band extended by its 4-row halo out to plane rows at
+        multiples of 4 (``runtime/collectives.halo_exchange``, ``align``
+        4) gives the band's rows of the full-plane output bit for bit,
+        whichever block shape each launch picks and wherever the band
+        starts: every tile is the full plane's and its sum runs in the
+        same order."""
+        dev = _cuda()
+        from repro_torch.runtime.collectives import halo_bounds, halo_exchange
+
+        n, h, w, cin, cout = shape
+        x = torch.from_numpy(_normal(h, (n, h, w, cin))).to(dev)
+        k = torch.from_numpy(_normal(w, (3, 3, cin, cout))
+                             * (2.0 / (9 * cin)) ** 0.5).to(dev)
+        b = torch.from_numpy(_normal(cout, (cout,))).to(dev)
+        full = winograd_conv2d(x, k, b, relu=True)
+        bh = h // bands
+        ext = halo_exchange(list(x.split(bh, dim=1)), 4, align=4)
+        for i, (xb, (lo, _)) in enumerate(zip(ext, halo_bounds(bands, bh, 4,
+                                                               4))):
+            got = winograd_conv2d(xb.contiguous(), k, b, relu=True)
+            j = i * bh - lo
+            assert torch.equal(got[:, j:j + bh],
+                               full[:, i * bh:(i + 1) * bh]), i
+
+    @pytest.mark.parametrize("op", ["upsample_fused", "conv7x7s2",
+                                    "conv3x3s2"])
+    def test_glue_convs_on_band_planes(self, op, request):
+        """The glue layers outside K1 and K2 (the fused upsample, whose tap
+        products run as GEMMs of one fixed shape, and the strided convs,
+        through cuDNN one image at a time) on a band extended by its
+        halo, against the same rows of the full plane: within 1e-5
+        relative, and the upsample bit-equal; whether the strided convs
+        are bit-equal is recorded (``bit_equal`` in the junit
+        properties), since cuDNN picks their algorithm from the shape."""
+        dev = _cuda()
+        from repro_torch.core import fuse
+        from repro_torch.core.rowband import layer_halo
+        from repro_torch.runtime.collectives import halo_exchange
+
+        k, s, cin, cout, h = {"upsample_fused": (3, 1, 128, 64, 32),
+                              "conv7x7s2": (7, 2, 3, 64, 512),
+                              "conv3x3s2": (3, 2, 128, 128, 128)}[op]
+        x = torch.from_numpy(_normal(h, (1, h, 2 * h, cin))).to(dev)
+        w = torch.from_numpy(_normal(cin, (k, k, cin, cout))
+                             * (2.0 / (k * k * cin)) ** 0.5).to(dev)
+        if op == "upsample_fused":
+            fn, scale = (lambda a: fuse.upsample2x_conv3x3_fused(a, w)), 2
+        else:
+            fn, scale = (lambda a: fuse.conv2d_nhwc(a, w, s, "SAME")), 1
+        full = fn(x)
+        halo, bh = layer_halo(k, s), h // 4
+        equal = True
+        for i, xb in enumerate(halo_exchange(list(x.split(bh, dim=1)),
+                                             halo)):
+            j0, rows = halo * scale // s, bh * scale // s
+            got = fn(xb)[:, j0:j0 + rows]
+            want = full[:, i * rows:(i + 1) * rows]
+            torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+            equal = equal and torch.equal(got, want)
+        request.node.user_properties.append(("bit_equal", equal))
+        assert equal or op != "upsample_fused"
+
+    @pytest.mark.parametrize("rows,k,n", [(512 * 512 // 16, 640, 128),
+                                          (64 * 64, 1024, 8)])
+    def test_bfp_matmul_band_rows_equal_full_plane(self, rows, k, n):
+        """K2 on one band's rows with the whole plane's K split
+        (``split_rows``): each band's rows are bit-equal to the same rows
+        of the full-plane product, and within 1e-4 of the plain version."""
+        dev = _cuda()
+        a = torch.relu(torch.from_numpy(_normal(k, (2 * rows, k)))).to(dev)
+        bm = torch.from_numpy(_normal(n, (k, n)) * (2.0 / k) ** 0.5).to(dev)
+        ops = quantize_operands(a, bm)
+        full = bfp_matmul_quantized(*ops, split_rows=rows)
+        for bands in (2, 4):
+            step = rows // bands
+            for i in range(2 * bands):
+                ma, ea = ops[0][i * step:(i + 1) * step], \
+                    ops[1][i * step:(i + 1) * step]
+                got = bfp_matmul_quantized(ma, ea, ops[2], ops[3],
+                                           split_rows=rows)
+                assert torch.equal(got, full[i * step:(i + 1) * step])
+        torch.testing.assert_close(
+            full, bfp_matmul_quantized_plain(*ops, block_size=32,
+                                             mantissa_bits=10),
+            atol=1e-4, rtol=1e-4)
+
+    @staticmethod
+    def _plans_against_single_device(backbone, hw, plans, request):
+        """Each ``(plan, bands, shards)`` of ``plans`` with every slot on
+        cuda:0, full width in bfp at ``hw``, batch 2: maps within
+        chip_smoke's map gate of SingleDevice's, labels equal, and one
+        call's launches K1 17 / K2 7 (VGG-16) or 40 (ResNet-50) per band
+        and shard, K3 once (per shard for DataParallel).  Each plan's
+        largest map delta goes to the junit properties."""
+        _cuda()
+        import dataclasses
+
+        from repro_torch import kernels
+        from repro_torch.configs.pixellink_std import RESNET50, VGG16
+        from repro_torch.models.fcn import DetectionModel, build_head
+        from repro_torch.runtime.executor import (
+            DataParallel, EngineFactory, SingleDevice)
+
+        cfg = VGG16 if backbone == "vgg16" else RESNET50
+        k2 = 7 if backbone == "vgg16" else 40
+        fac = EngineFactory(
+            lambda hw_, precision, model: DetectionModel(
+                dataclasses.replace(cfg, image_size=hw_), build_head(model),
+                "cuda"), device="cuda")
+        params = fac.params(hw, "bfp")
+        x = torch.from_numpy(np.random.default_rng(0).uniform(
+            0, 1, (2,) + hw + (3,)).astype(np.float32)).cuda()
+        vq = torch.tensor([[hw[0] // 4, hw[1] // 4],
+                           [hw[0] // 4 - 28, 60]], dtype=torch.int32,
+                          device="cuda")
+        single = fac.plan_fn(hw, 2, SingleDevice(), "bfp")
+        want = single.forward(params, x)
+        want_labels = single(params, x, vq)[0]
+        scale = (float(want["logits"].abs().max()) if backbone == "resnet50"
+                 else None)
+        gate = (2.5e-3 * scale, 2.5e-4 * scale) if scale else (2e-2, 2e-3)
+        for plan, bands, shards in plans:
+            fn = fac.plan_fn(hw, 2, plan, "bfp")
+            kernels.reset_launch_counts()
+            labels, converged = fn(params, x, vq)
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            assert counts["winograd_tiles"] == 17 * bands * shards
+            assert counts["bfp_matmul_quantized"] == k2 * bands * shards
+            assert counts["local_spread_converge"] == (
+                shards if isinstance(plan, DataParallel) else 1)
+            assert bool(converged.all())
+            got = fn.forward(params, x)
+            request.node.user_properties.append((repr(plan)[:12] + str(
+                (bands, shards)), max(float((got[k] - want[k]).abs().max())
+                                      for k in ("score", "links"))))
+            for name in ("score", "links"):
+                d = (got[name] - want[name]).abs()
+                assert float(d.max()) <= gate[0], (plan, name)
+                assert float(d.mean()) <= gate[1], (plan, name)
+            assert torch.equal(labels, want_labels), plan
+
+    @staticmethod
+    def _card_mesh(shape):
+        from repro_torch.launch.mesh import make_host_mesh
+
+        return make_host_mesh(shape, ("data", "model"), device="cuda:0")
+
+    @pytest.mark.parametrize("backbone", ["vgg16", "resnet50"])
+    def test_plans_match_single_device_on_card(self, backbone, request):
+        """RowBand (2, 4), DataParallel (2) and GridPlan (2x2) at 512x256
+        (:meth:`_plans_against_single_device`): 512 rows keep every band
+        offset a multiple of 4 rows down to stride 32."""
+        _cuda()
+        from repro_torch.runtime.executor import (DataParallel, GridPlan,
+                                                  RowBand)
+
+        mesh = self._card_mesh
+        self._plans_against_single_device(
+            backbone, (512, 256),
+            ((RowBand(mesh((1, 2))), 2, 1), (RowBand(mesh((1, 4))), 4, 1),
+             (DataParallel(mesh((2, 1))), 1, 2),
+             (GridPlan(mesh((2, 2))), 2, 2)), request)
+
+    @pytest.mark.parametrize("backbone", ["vgg16", "resnet50"])
+    def test_unaligned_bands_match_single_device_on_card(self, backbone,
+                                                         request):
+        """RowBand(4) of a 256-row plane leaves two rows a band at stride
+        32, so band offsets there are not multiples of K1's 4-row tile;
+        the exchange's tile alignment keeps the tiles the full plane's,
+        and the plan is held as the aligned ones are
+        (:meth:`_plans_against_single_device`)."""
+        _cuda()
+        from repro_torch.runtime.executor import RowBand
+
+        self._plans_against_single_device(
+            backbone, (256, 256), ((RowBand(self._card_mesh((1, 4))), 4, 1),),
+            request)

@@ -81,10 +81,12 @@ def test_bfp_maps_within_tolerance_and_boxes_equal(requests):
 
 
 def test_unported_options_raise():
+    """Plans, tall plans and planners are ported; what is not one of them
+    is refused."""
     kw = dict(width=0.125, buckets=BUCKETS, device="cpu")
     for bad in (dict(planner=object()), dict(tall_plan=object()),
                 dict(plan=object())):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(TypeError):
             STDService(**kw, **bad)
     for model in ("east", "db"):
         assert STDService(**kw, model=model).head.name == model
@@ -115,7 +117,9 @@ def test_port_imports_without_jax(tmp_path):
         "from repro_torch.data.images import RequestStream\n"
         "import repro_torch.kernels.cc_label, repro_torch.configs.pixellink_std\n"
         "import repro_torch.runtime.telemetry, repro_torch.runtime.pipeline\n"
-        "import repro_torch.launch.batching\n"
+        "import repro_torch.launch.batching, repro_torch.launch.mesh\n"
+        "import repro_torch.runtime.planner, repro_torch.runtime.sharding\n"
+        "import repro_torch.runtime.collectives, repro_torch.core.rowband\n"
         "svc = STDService(width=0.125, buckets=(64,), device='cpu')\n"
         "svc(RequestStream(1, seed=0, hw_range=((48, 64), (48, 64))).images()[0])\n"
         "dev = STDService(width=0.125, buckets=(64,), device='cpu',\n"
