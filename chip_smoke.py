@@ -136,11 +136,39 @@ non-zero before the result line is printed.
    forward over all 128 tokens at the same positions (max abs 5e-3, the
    reference's own decode-vs-forward tolerance).
 
+6. The serving fleet and STD training.
+   6a: a ``Router`` over 3 ``ServiceReplica``s, each an STDService on
+   cuda:0 with phase 3's device-route settings and weights (r0 routing
+   through a ``Planner`` over a (1, 1) mesh), under ``round_robin``,
+   ``least_loaded`` and ``p99`` on phase 3's 24 requests (every third in
+   class "batch"), after one untimed pass that builds every engine:
+   boxes equal phase 3's sequential boxes, launches K1 17 / K2 7 / K3 1
+   per replica batch, the fleet's Prometheus text names each replica
+   once a line, ``refit_now()`` fits r0's CostParams; images/s, p50/p99
+   and requests per replica printed.
+   6b: full-width VGG-16 PixelLink trained in the reference datapath
+   (512x512, batch 4, ``SyntheticSTDData(seed=0)``, AdamW with weight
+   decay 1e-4 and ``cosine_with_warmup(3e-3, 5, 20)``) through
+   ``TrainRunner`` and a ``CheckpointManager`` (every 5 steps) under
+   deterministic algorithms (``CUBLAS_WORKSPACE_CONFIG`` set before CUDA
+   starts): 20 steps crash after step 13, the resume starts at 10, and
+   its params and optimizer state are bit-equal to 20 uninterrupted
+   steps; every loss finite, the mean of the last 5 below the first;
+   step ms (host clock, median), images/s, peak memory and the blocking
+   part of an async save printed.
+   6c: ``launch/train_std.main(["--steps", "150"])`` on the card (width
+   0.25, 64x64): the held-out f-measure improves.
+   6d: 6b's params folded by ``normalize_weights`` through the optimized
+   f32 datapath with the kernels (K1 17, K3 1 launches): maps within
+   phase 2's VGG-16 gate of the reference-mode forward of the same
+   params.
+
 The last lines are a ``{"kernels": [...]}`` JSON line (``launches``: the
 VGG-16 PixelLink forward's and the Zamba2 prefill's counts;
-``launches_by_path``: ResNet-50's forward and one EAST and DB serving
-batch), the card's name and power limit from nvidia-smi, and ``{"ok":
-true, "device": {...}}``.
+``launches_by_path``: ResNet-50's forward, one EAST and DB serving
+batch, the plans, one fleet replica batch and the deploy check), the
+card's name and power limit from nvidia-smi, and ``{"ok": true,
+"device": {...}}``.
 
 ``python3 chip_smoke.py --profile`` also runs torch.profiler over ten
 calls of K1 (conv1_2, conv5_1, ResNet-50's s4b2_c2), K2 (merge1_c1,
@@ -154,6 +182,7 @@ device's busy share of each.
 import contextlib
 import dataclasses
 import json
+import os
 import re
 import shutil
 import statistics
@@ -902,7 +931,7 @@ def _checked_launches(kernels, n_batches: int, what: str,
     return launches
 
 
-def phase_serving(torch, np, profile=False):
+def phase_serving(torch, np, profile=False) -> dict:
     from repro_torch import kernels
     from repro_torch.data.images import RequestStream
     from repro_torch.launch.serve import STDService
@@ -1035,6 +1064,9 @@ def phase_serving(torch, np, profile=False):
         f"{mem['argument_bytes'] / 2**20:.1f} MiB, temp "
         f"{mem['temp_bytes'] / 2**20:.1f} MiB) against the planned "
         f"activation peak {mem['planned_peak_bytes'] / 2**20:.1f} MiB")
+    # the fleet (phase 6a) serves the same 24 requests with these weights
+    return {"images": many, "boxes": seq,
+            "params": dev.factory.params(HW, "f32")}
 
 
 def phase_zoo_serving(torch, np) -> dict:
@@ -1656,10 +1688,288 @@ def phase_lm_parity(torch):
         fail(f"decode logits differ from the forward pass by {d_decode}")
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the serving fleet and STD training
+# ---------------------------------------------------------------------------
+
+FLEET_POLICIES = ("round_robin", "least_loaded", "p99")
+TRAIN_CFG = dict(backbone="vgg16", width=1.0, image_size=HW,
+                 merge_ch=(128, 64, 32), mode="reference",
+                 storage_fp16=False)
+TRAIN_BATCH = 4
+TRAIN_STEPS = 20
+
+
+def phase_fleet(torch, np, served: dict) -> dict:
+    """6a: a Router over 3 ServiceReplicas, each an STDService on cuda:0
+    with phase 3's settings (device box tail, max_batch 4, max_wait_ms
+    5), replica r0 routing through a Planner over a (1, 1) mesh.  Under
+    each policy the 24 requests of phase 3 (every third in class
+    "batch") get phase 3's sequential boxes, and every replica batch
+    launches K1 17, K2 7 and K3 once; the fleet's Prometheus text names
+    each replica once a line, and ``refit_now`` fits r0's CostParams.
+    Returns the launches of one replica batch."""
+    from repro_torch import kernels
+    from repro_torch.data.images import RequestStream
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.router import Router, ServiceReplica
+    from repro_torch.launch.serve import STDService
+    from repro_torch.runtime.planner import CostParams, Planner
+    from repro_torch.runtime.telemetry import prometheus_text
+
+    geo = dict(width=1.0, precision="bfp", buckets=(128, 256, 512),
+               merge_ch=(128, 64, 32), postprocess="device", max_batch=4,
+               max_wait_ms=5, inflight=1, device="cuda",
+               params=served["params"])
+    svcs = [STDService(**geo, planner=Planner(
+        make_host_mesh((1, 1), device="cuda:0")) if i == 0 else None)
+        for i in range(3)]
+    reps = [ServiceReplica(f"r{i}", s) for i, s in enumerate(svcs)]
+    images, want = served["images"], _box_keys(served["boxes"])
+
+    def run(policy):
+        lat = [None] * len(images)
+        with Router(reps, policy=policy) as router:
+            t0 = time.perf_counter()
+            futs = []
+            for i, img in enumerate(images):
+                t = time.perf_counter()
+                fut = router.submit(img, deadline_class="batch"
+                                    if i % 3 == 2 else "interactive")
+                fut.add_done_callback(
+                    lambda f, i=i, t=t: lat.__setitem__(
+                        i, time.perf_counter() - t))
+                futs.append(fut)
+            got = [f.result(timeout=600) for f in futs]
+            wall = time.perf_counter() - t0
+        # each replica's batcher stopped with the router: its batches
+        n_batches = sum(len(s.stats["batching"]["batches"]) for s in svcs)
+        return got, wall, lat, dict(router.stats["placed"]), n_batches
+
+    # every engine built on each replica, untimed
+    run("round_robin")
+    for policy in FLEET_POLICIES:
+        kernels.reset_launch_counts()
+        got, wall, lat, placed, n_batches = run(policy)
+        launches = _checked_launches(kernels, n_batches,
+                                     f"fleet, {policy}")
+        if _box_keys(got) != want:
+            fail(f"fleet, {policy}: boxes differ from phase 3's sequential "
+                 f"boxes")
+        lat = [v for v in lat if v is not None]
+        if len(lat) != len(images):
+            fail(f"fleet, {policy}: {len(lat)} latencies for "
+                 f"{len(images)} requests")
+        log(f"6a fleet of 3, {policy}: {len(images)} requests "
+            f"{len(images) / wall:.2f} images/s, latency p50/p99 "
+            f"{np.percentile(lat, 50) * 1e3:.2f} / "
+            f"{np.percentile(lat, 99) * 1e3:.2f} ms, requests per replica "
+            f"{placed}, {n_batches} replica batches, boxes equal phase 3's "
+            f"sequential boxes, launches {launches}")
+    with Router(reps, policy="p99") as router:
+        fitted = router.refit_now()
+        text = prometheus_text(router.metrics_snapshot())
+    lines = text.splitlines()
+    twice = [ln for ln in lines if ln.count('replica="') > 1]
+    missing = [r.name for r in reps
+               if not any(f'replica="{r.name}"' in ln for ln in lines)]
+    if twice or missing:
+        fail(f"fleet metrics: {len(twice)} lines name a replica twice "
+             f"({twice[:2]}), replicas missing {missing}")
+    if set(fitted) != {"r0"} or not isinstance(fitted["r0"], CostParams):
+        fail(f"fleet refit_now: {fitted}")
+    log(f"6a fleet metrics_prometheus: {len(lines)} lines, each replica "
+        f"labelled once a line; refit_now fitted r0: {fitted['r0']}")
+    return {"fleet, one replica batch": dict(VGG_LAUNCHES)}
+
+
+@contextlib.contextmanager
+def deterministic(torch):
+    """Deterministic algorithms for this block only (the device box tail
+    elsewhere has no deterministic CUDA path)."""
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.benchmark)
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev[0])
+        torch.backends.cudnn.deterministic = prev[1]
+        torch.backends.cudnn.benchmark = prev[2]
+
+
+def _leaves_equal(torch, a, b) -> bool:
+    from repro_torch.core import tree as tree_lib
+
+    la, lb = tree_lib.leaves(a), tree_lib.leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def phase_training(torch, np):
+    """6b: full-width VGG-16 PixelLink training in the reference datapath
+    (512x512, batch 4, AdamW, cosine_with_warmup(3e-3, 5, 20)) through
+    TrainRunner and a CheckpointManager, checkpoints every 5 steps: 20
+    steps crash after step 13, the resume starts at 10, and its params
+    and optimizer state are bit-equal to 20 uninterrupted steps.  Returns
+    the final params."""
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.data.images import SyntheticSTDData
+    from repro_torch.launch import train_std
+    from repro_torch.models.fcn import PixelLinkModel, STDLoss
+    from repro_torch.models.fcn.pixellink import STDConfig
+    from repro_torch.optim import adamw, cosine_with_warmup
+    from repro_torch.runtime.fault_tolerance import TrainRunner
+
+    model = PixelLinkModel(STDConfig(**TRAIN_CFG), "cuda")
+    params = model.init_params(torch.Generator().manual_seed(0))
+    data = SyntheticSTDData(HW, seed=0)
+    samples = {}
+
+    def batch_fn(i):
+        if i not in samples:
+            samples[i] = data.sample(i, TRAIN_BATCH)
+        return train_std.batch_on(samples[i], "cuda")
+
+    opt_init, opt_update = adamw(cosine_with_warmup(3e-3, 5, TRAIN_STEPS),
+                                 weight_decay=1e-4)
+    step = train_std.make_train_step(model, STDLoss(), opt_update)
+    state0 = (params, opt_init(params))
+    with deterministic(torch), tempfile.TemporaryDirectory() as d:
+        crashed = TrainRunner(step, batch_fn, CheckpointManager(d),
+                              ckpt_every=5)
+        try:
+            crashed.run(state0, 0, TRAIN_STEPS, fail_at=13)
+            fail("6b: the injected failure at step 13 did not fire")
+        except RuntimeError as e:
+            if "injected" not in str(e):
+                raise
+        runner = TrainRunner(step, batch_fn, CheckpointManager(d),
+                             ckpt_every=5)
+        start, state = runner.resume_or_init(state0)
+        if start != 10:
+            fail(f"6b: resumed at step {start}, not 10")
+        _, resumed, status = runner.run(state, start, TRAIN_STEPS - start)
+        mgr = CheckpointManager(os.path.join(d, "async"))
+        t0 = time.perf_counter()
+        mgr.save(TRAIN_STEPS, resumed, blocking=False)
+        blocking_s = time.perf_counter() - t0
+        mgr.wait()
+        save_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        direct, losses, walls = state0, [], []
+        for i in range(TRAIN_STEPS):
+            b = batch_fn(i)
+            t0 = time.perf_counter()
+            direct, d_ = step(direct, b)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            losses.append(float(d_["loss"]))
+        peak = torch.cuda.max_memory_allocated()
+    if status != "done":
+        fail(f"6b: the resumed run ended {status!r}")
+    if not _leaves_equal(torch, resumed, direct):
+        fail("6b: params and optimizer state resumed at step 10 differ from "
+             "20 uninterrupted steps")
+    if not all(np.isfinite(losses)):
+        fail(f"6b: non-finite losses {losses}")
+    if not np.mean(losses[-5:]) < losses[0]:
+        fail(f"6b: the mean of the last 5 losses {np.mean(losses[-5:]):.4f}"
+             f" is not below the first {losses[0]:.4f}")
+    step_s = statistics.median(walls)
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_lib.leaves(direct))
+    runner_s = statistics.median(m["dt"] for m in runner.metrics_log)
+    log(f"6b training VGG-16 PixelLink at width 1.0, 512x512, batch "
+        f"{TRAIN_BATCH}, reference datapath, deterministic algorithms: "
+        f"crash after step 13, resumed at 10, params and optimizer state "
+        f"bit-equal to {TRAIN_STEPS} uninterrupted steps; losses "
+        f"{losses[0]:.4f} -> {np.mean(losses[-5:]):.4f} (mean of the last "
+        f"5); step {step_s * 1e3:.2f} ms median (host clock, TrainRunner "
+        f"{runner_s * 1e3:.2f}), {TRAIN_BATCH / step_s:.2f} images/s, peak "
+        f"memory {peak / 2**30:.2f} GiB; async save of "
+        f"{state_bytes / 2**20:.1f} MiB: {blocking_s * 1e3:.1f} ms blocking,"
+        f" {save_s * 1e3:.1f} ms to disk")
+    return direct[0]
+
+
+def phase_train_example(torch):
+    """6c: ``launch/train_std.main(["--steps", "150"])`` on the card
+    (width 0.25, 64x64): the held-out f-measure must improve."""
+    from repro_torch.launch import train_std
+
+    got = train_std.main(["--steps", "150"])
+    log(f"6c train_std, 150 steps on the card: f-measure "
+        f"{got['f_before']:.3f} -> {got['f_after']:.3f}")
+
+
+def phase_deploy(torch, np, params) -> dict:
+    """6d: 6b's trained params folded by ``normalize_weights`` and run in
+    the optimized f32 datapath with the kernels (K1 17, K3 1 launches
+    counted) through EngineFactory; their maps within phase 2's VGG-16
+    gate of the reference-mode forward of the trained params.  Returns
+    the launches."""
+    from repro_torch import kernels
+    from repro_torch.data.images import SyntheticSTDData
+    from repro_torch.models.fcn import DetectionModel, PixelLinkModel
+    from repro_torch.models.fcn import build_head
+    from repro_torch.models.fcn.pixellink import STDConfig
+    from repro_torch.runtime.executor import EngineFactory, SingleDevice
+
+    trained = PixelLinkModel(STDConfig(**TRAIN_CFG), "cuda")
+    deploy_cfg = STDConfig(**{**TRAIN_CFG, "mode": "optimized"})
+    factory = EngineFactory(
+        lambda hw, precision, model: DetectionModel(
+            dataclasses.replace(deploy_cfg, image_size=hw),
+            build_head(model), "cuda"), device="cuda")
+    folded = factory.model(HW, "f32").normalize_weights(params)
+    fn = factory.plan_fn(HW, BATCH, SingleDevice(), "f32")
+    x = torch.from_numpy(SyntheticSTDData(HW, seed=0).sample(
+        5000, BATCH)["images"]).cuda()
+    vq = torch.full((BATCH, 2), HW[0] // 4, dtype=torch.int32, device="cuda")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    labels, converged = fn(folded, x, vq)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    want = dict.fromkeys(launches, 0)
+    want.update(winograd_tiles=17, local_spread_converge=1)
+    if launches != want:
+        fail(f"6d: launches {launches} != {want}")
+    if not bool(converged.all()):
+        fail("6d: CC labelling did not converge")
+    maps = fn.forward(folded, x)
+    with torch.no_grad():
+        ref = trained.apply(params, x)
+    deltas = {k: (float((maps[k] - ref[k]).abs().max()),
+                  float((maps[k] - ref[k]).abs().mean()))
+              for k in ("score", "links", "logits")}
+    gate = map_gate("vgg16", None)
+    for k in ("score", "links"):
+        if deltas[k][0] > gate[0] or deltas[k][1] > gate[1]:
+            fail(f"6d: deployed {k} maps differ from the reference-mode "
+                 f"forward by {deltas[k]} (gate {gate})")
+    log(f"6d deploy: trained params folded, optimized f32 datapath on K1 "
+        f"and K3 (launches {launches}), maps against the reference-mode "
+        f"forward (max, mean) {deltas}, gate {gate}; components per image "
+        f"{[int(labels[i].unique().numel()) - 1 for i in range(BATCH)]}")
+    return {"deploy check, one forward and CC tail": launches}
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "csrc").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout")
     sys.path.insert(0, str(SRC))
+    # deterministic cuBLAS for phase 6b's bit-exact resume: read when CUDA
+    # initializes
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import numpy as np
     import torch
 
@@ -1700,7 +2010,8 @@ def main() -> None:
                 VGG_LAUNCHES, profile=profile)
     resnet = timed("phase 2, ResNet-50", phase_model, torch, np, RESNET50,
                    RESNET_LAUNCHES, profile=profile)
-    timed("phase 3, serving", phase_serving, torch, np, profile=profile)
+    served = timed("phase 3, serving", phase_serving, torch, np,
+                   profile=profile)
     zoo = timed("phase 3, EAST and DB serving", phase_zoo_serving, torch,
                 np)
     plans, checked = timed("phase 3b, execution plans", phase_plans, torch,
@@ -1715,9 +2026,15 @@ def main() -> None:
         rows[name] += extra
     lm = timed("phase 4", phase_lm_serving, torch, profile=profile)
     timed("phase 5", phase_lm_parity, torch)
+    fleet = timed("phase 6a, fleet", phase_fleet, torch, np, served)
+    trained = timed("phase 6b, training", phase_training, torch, np)
+    timed("phase 6c, train_std", phase_train_example, torch)
+    deploy = timed("phase 6d, deploy check", phase_deploy, torch, np,
+                   trained)
     launches = {k: fcn[k] for k in FCN_KERNELS}
     launches.update({k: lm[k] for k in LM_KERNELS})
-    by_path = {"pixellink_resnet50 forward": resnet, **zoo, **plans}
+    by_path = {"pixellink_resnet50 forward": resnet, **zoo, **plans,
+               **fleet, **deploy}
 
     meta = {
         "winograd_tiles": ("src/repro_torch/csrc/winograd_conv.cu",

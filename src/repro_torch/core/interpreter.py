@@ -14,6 +14,13 @@ every stride-1 3x3 conv through K1 (``kernels/winograd_conv``), and in
 BFP precision every 1x1 stride-1 conv through K2 (``kernels/bfp_matmul``).
 On CPU tensors those wrappers run their plain torch versions.
 
+The walk is differentiable in the plain datapaths, as the reference's
+``apply`` is under ``jax.grad``: training runs ``mode="reference"``.
+The kernels have no backward, so their wrappers refuse tensors that
+require grad, and the serving layers (``EngineFactory``'s engines,
+``drive_bands``, ``STDService``, LM prefill and decode) run under
+``torch.no_grad()``.
+
 Row-banded execution (paper §IV.B across mesh slots): :meth:`FCNEngine.
 walk` is the interpreter loop as a generator; on one band of a plane it
 yields before every spatial layer whose window crosses band edges and
@@ -271,7 +278,6 @@ class FCNEngine:
         return y[:, j0:j0 + bh * out_scale // s]
 
     # -- the interpreter loop -------------------------------------------------
-    @torch.no_grad()
     def walk(self, params, x: torch.Tensor, *, transposed: bool = False,
              banded: bool = False, trace=None):
         """The program over ``x`` as a generator whose value is the output
@@ -382,7 +388,6 @@ class FCNEngine:
                     cache = None
         return {k: arena[a] for k, a in prog.outputs.items()}
 
-    @torch.no_grad()
     def __call__(self, params, x: torch.Tensor, *, transposed: bool = False
                  ) -> Dict[str, torch.Tensor]:
         """x: (N, H, W, C) matching the program's input plane (or its

@@ -15,10 +15,17 @@ tensors it launches its kernel (built at first use by ``build.py``) or
 raises.  Each wrapper counts its launches in a plain integer attribute,
 ``launches``, which :func:`launch_counts` reads and
 :func:`reset_launch_counts` zeroes.
+
+No kernel has a backward (nor has any Pallas kernel of the reference a
+VJP): K1, K2 and K3's wrappers raise, on any device, when grad mode is
+on and an operand requires grad (:func:`refuse_autograd`), rather than
+return a result that carries no gradient.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
+
+import torch
 
 
 def wrappers() -> Dict[str, object]:
@@ -45,3 +52,14 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in wrappers().values():
         fn.launches = 0
+
+
+def refuse_autograd(name: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Raise if autograd would have to differentiate through kernel
+    ``name``."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the kernel has no backward, and an operand requires "
+            f"grad; train in mode='reference' (as the reference does), or "
+            f"call it under torch.no_grad()")

@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import bfp as bfp_lib
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_autograd
 
 MIN_BLOCKS = 132            # one block per SM of an H100
 MAX_SPLITS = 8              # K splits of one tile: a cluster of blocks
@@ -144,6 +144,7 @@ def bfp_matmul(a: torch.Tensor, b: torch.Tensor, *,
                mantissa_bits: int = bfp_lib.DEFAULT_MANTISSA,
                rounding: str = "trunc", split_rows: int = 0) -> torch.Tensor:
     """C = A @ B through shared-exponent BFP (A: (M, K), B: (K, N))."""
+    refuse_autograd("bfp_matmul", a, b)
     ma, ea, mb, eb = quantize_operands(
         a, b, block_size=block_size, mantissa_bits=mantissa_bits,
         rounding=rounding)

@@ -17,7 +17,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_autograd
 from repro_torch.models.fcn import postprocess as pp
 
 MAX_TILE = 32
@@ -101,6 +101,7 @@ def cc_label_tiled(score: torch.Tensor, links: torch.Tensor,
     phase-2 rounds; with ``return_stats`` the result is ``(labels, iters,
     converged)`` per image.  Planes that are not tile multiples are
     zero-padded for phase 1 only (padding is background)."""
+    refuse_autograd("cc_label_tiled", score, links)
     pos, lnk = pp._prepare(score, links, score_thr, link_thr, valid_mask)
     n, h, w = pos.shape
     bh, bw = min(th, h), min(tw, w)

@@ -16,7 +16,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import winograd as wg
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_autograd
 
 PADS = {"SAME": 1, "VALID": 0}
 
@@ -38,6 +38,7 @@ def winograd_tiles(x: torch.Tensor, u: torch.Tensor,
                    b: Optional[torch.Tensor] = None, *,
                    padding: str = "SAME", relu: bool = False) -> torch.Tensor:
     """(n, H, W, Cin) x (36, Cin, Cout) -> (n, out_h, out_w, Cout) f32."""
+    refuse_autograd("winograd_tiles", x, u, b)
     n, h, w, cin = x.shape
     cout = u.shape[-1]
     if padding not in PADS:

@@ -331,6 +331,7 @@ class STDService:
             return t.pin_memory().to(self.device, non_blocking=True)
         return t.to(self.device)
 
+    @torch.no_grad()
     def _dispatch(self, stack: np.ndarray,
                   valid_hws: List[Tuple[int, int]]):
         """Route and pad the batch and queue its work: returns the pending

@@ -15,12 +15,12 @@ from .heads import (
     db_unclip_box,
     params_from_numpy,
 )
-from .pixellink import PixelLinkModel, STDConfig
+from .pixellink import PixelLinkModel, STDConfig, STDLoss
 
 __all__ = [
     "backbones", "fusion", "heads", "pixellink", "postprocess",
     "DEFAULT_MODEL", "MODEL_ZOO", "DBHead", "DetectionHead",
     "DetectionModel", "EASTHead", "PixelLinkHead", "build_head",
     "check_model", "db_unclip_box", "params_from_numpy",
-    "PixelLinkModel", "STDConfig",
+    "PixelLinkModel", "STDConfig", "STDLoss",
 ]

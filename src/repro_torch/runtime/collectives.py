@@ -1,4 +1,13 @@
-"""Halo exchange: the paper's §IV.B row-band overlap rows between mesh
+"""Collectives between mesh slots, driven by one process: the halo
+exchange of row bands, and the BFP-compressed gradient sum.
+
+``compressed_psum``: the paper's C2 block quantizer applied to the
+interconnect.  Each slot quantizes its tensor; the int8 (or int16)
+mantissas and int32 block exponents are what cross to every other slot,
+about a quarter of the f32 bytes; each slot then dequantizes the n
+encodings and adds them in slot order, as the reference's loop does.
+
+Halo exchange: the paper's §IV.B row-band overlap rows between mesh
 slots.
 
 Each slot along the band axis holds one horizontal band of an image
@@ -30,6 +39,52 @@ from __future__ import annotations
 from typing import List, Sequence, Tuple
 
 import torch
+
+from repro_torch.core import bfp as bfp_lib
+
+F32 = torch.float32
+
+
+def compressed_psum(xs: Sequence[torch.Tensor], *, mantissa_bits: int = 7,
+                    block_size: int = 32) -> List[torch.Tensor]:
+    """``xs``: one tensor per slot, each on its slot's device, all of one
+    shape.  Returns each slot the sum over slots, in ``xs[i]``'s dtype
+    on its device, computed from the moved BFP encodings."""
+    xs = list(xs)
+    if len({tuple(x.shape) for x in xs}) != 1:
+        raise ValueError(f"compressed_psum: shapes differ: "
+                         f"{[tuple(x.shape) for x in xs]}")
+    wire = torch.int8 if mantissa_bits <= 7 else torch.int16
+    sent = []
+    for x in xs:
+        q = bfp_lib.quantize(x.to(F32), block_size=block_size,
+                             mantissa_bits=mantissa_bits, axis=-1,
+                             rounding="nearest")
+        sent.append((q.mantissa.to(wire), q.exponent.to(torch.int32)))
+    ndim = xs[0].ndim
+    out = []
+    for x in xs:
+        acc = torch.zeros(x.shape, dtype=F32, device=x.device)
+        for m, e in sent:
+            t = bfp_lib.BFPTensor(
+                m.to(x.device, non_blocking=True).to(torch.int32),
+                e.to(x.device, non_blocking=True), mantissa_bits,
+                block_size, ndim - 1)
+            acc = acc + bfp_lib.dequantize(t)
+        out.append(acc.to(x.dtype))
+    return out
+
+
+def psum_bytes_model(nbytes_f32: int, n_devices: int, *, compressed: bool,
+                     mantissa_bits: int = 7, block_size: int = 32
+                     ) -> Tuple[int, int]:
+    """(bytes of an f32 ring all-reduce, bytes of the compressed
+    all-gather) per device for one tensor of ``nbytes_f32`` bytes."""
+    ring = 2 * (n_devices - 1) * nbytes_f32 // n_devices
+    mb = 1 if mantissa_bits <= 7 else 2
+    q = nbytes_f32 // 4 * mb + nbytes_f32 // 4 // block_size
+    gather = (n_devices - 1) * q // n_devices
+    return ring, gather
 
 
 def halo_bounds(n: int, band: int, halo: int, align: int = 1

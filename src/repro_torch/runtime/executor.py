@@ -199,6 +199,7 @@ def _on(device: torch.device):
     return contextlib.nullcontext()
 
 
+@torch.no_grad()
 def drive_bands(groups: List[List[Tuple[torch.device, Any]]]
                 ) -> List[List[Any]]:
     """Run band walks in lockstep.  ``groups``: per plane, its bands'
@@ -260,6 +261,15 @@ class _Replicas:
                             for n, p in params.items()})
             self._copies[device] = hit
         return hit[1]
+
+
+def _serving(fn: Callable) -> Callable:
+    """An engine and its ``forward`` under ``torch.no_grad()``: serving
+    builds no autograd graph, whatever the parameters require."""
+    run = torch.no_grad()(fn)
+    if hasattr(fn, "forward"):
+        run.forward = torch.no_grad()(fn.forward)
+    return run
 
 
 def _tensor_bytes(tree) -> int:
@@ -400,7 +410,8 @@ class EngineFactory:
                    hw, batch, precision, model)}
         if self.device.type == "cuda":
             params = self.params(hw, precision, model)
-            fn = self._compile(hw, int(batch), plan, precision, model)
+            fn = _serving(self._compile(hw, int(batch), plan, precision,
+                                        model))
             x = torch.zeros((int(batch), hw[0], hw[1], 3),
                             dtype=torch.float32, device=self.device)
             vq = torch.full((int(batch), 2), hw[0] // 4, dtype=torch.int32,
@@ -438,7 +449,8 @@ class EngineFactory:
         fn = self._engines.get(key)
         if fn is not None:
             return fn
-        fn = self._compile(tuple(hw), int(batch), plan, precision, model)
+        fn = _serving(self._compile(tuple(hw), int(batch), plan, precision,
+                                    model))
         if self.book is not None:
             fn = self._timed(fn, tuple(hw), int(batch), kind,
                              precision, model)

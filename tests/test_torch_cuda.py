@@ -756,3 +756,98 @@ class TestOnCard:
         self._plans_against_single_device(
             backbone, (256, 256), ((RowBand(self._card_mesh((1, 4))), 4, 1),),
             request)
+
+    # -- training on the card -------------------------------------------------
+
+    def test_training_step_on_card(self):
+        """One train_std step on cuda:0 (VGG-16 PixelLink, width 0.25,
+        64x64, batch 4, reference mode): finite loss, finite gradients
+        for every leaf, zeros for the BN leaves the forward never reads,
+        and params that moved."""
+        dev = _cuda()
+        from repro_torch.data.images import SyntheticSTDData
+        from repro_torch.launch import train_std
+        from repro_torch.models.fcn import PixelLinkModel, STDLoss
+        from repro_torch.optim import adamw, value_and_grad
+
+        model = PixelLinkModel(train_std.make_config(), dev)
+        params = model.init_params(torch.Generator().manual_seed(0))
+        batch = train_std.batch_on(
+            SyntheticSTDData((64, 64), max_instances=3).sample(0, 4), dev)
+        loss_fn = STDLoss()
+        loss, grads = value_and_grad(
+            lambda p: loss_fn(model.apply(p, batch["images"]),
+                              batch["score"], batch["links"])["loss"],
+            params)
+        assert bool(torch.isfinite(loss))
+        for name, leaves in grads.items():
+            for k, g in leaves.items():
+                assert g.device.type == "cuda" and bool(
+                    torch.isfinite(g).all()), (name, k)
+                if k in ("gamma", "beta", "mean", "var"):
+                    assert not bool(g.any()), (name, k)
+        init, update = adamw(3e-3, weight_decay=1e-4)
+        step = train_std.make_train_step(model, loss_fn, update)
+        (new, opt), d = step((params, init(params)), batch)
+        assert float(d["loss"]) == pytest.approx(float(loss), rel=1e-5)
+        assert int(opt.step) == 1
+        assert not torch.equal(new["conv1_1"]["w"], params["conv1_1"]["w"])
+
+    def test_serving_outputs_carry_no_graph(self):
+        """Parameters that require grad, served on the card: the service's
+        boxes come out, and the maps of SingleDevice and of a RowBand(2)
+        plan carry no graph."""
+        dev = _cuda()
+        from repro_torch.launch.serve import STDService
+        from repro_torch.runtime.executor import RowBand
+
+        svc = STDService(width=0.125, buckets=(64,), device=dev)
+        live = {n: {k: v.clone().requires_grad_(True) for k, v in p.items()}
+                for n, p in svc.factory.params((64, 64)).items()}
+        svc.factory.set_params(live)
+        img = np.random.default_rng(0).uniform(0, 1, (60, 52, 3)) \
+            .astype(np.float32)
+        assert isinstance(svc(img), list)
+        x = torch.rand(1, 64, 64, 3, device=dev)
+        vq = torch.full((1, 2), 16, dtype=torch.int32, device=dev)
+        for plan in (None, RowBand(self._card_mesh((1, 2)))):
+            fn = svc.factory.plan_fn((64, 64), 1, plan)
+            maps = fn.forward(live, x)
+            labels, converged = fn(live, x, vq)
+            assert not any(t.requires_grad for t in maps.values()), plan
+            assert not labels.requires_grad and bool(converged.all())
+
+    def test_checkpoint_from_card_restores_on_cpu(self):
+        """A params + AdamW (bfp8 moments) tree saved from cuda:0 restores
+        onto the CPU bit for bit, and back onto the card."""
+        import tempfile
+
+        dev = _cuda()
+        from repro_torch.checkpoint import (restore_checkpoint,
+                                            save_checkpoint)
+        from repro_torch.core import tree as tree_lib
+        from repro_torch.optim import adamw
+
+        params = {"a": torch.arange(12.0, device=dev).reshape(3, 4)
+                  .to(torch.bfloat16),
+                  "b": {"c": torch.from_numpy(_normal(0, (5, 40))).to(dev)}}
+        init, update = adamw(1e-2, moment_dtype="bfp8")
+        st = init(params)
+        g = tree_lib.tree_map(lambda p: torch.ones(p.shape, device=dev),
+                              params)
+        params, st = update(g, st, params)
+        tree = {"params": params, "opt": st}
+        with tempfile.TemporaryDirectory() as d:
+            save_checkpoint(d, 1, tree, blocking=False).join()
+            cpu = restore_checkpoint(d, 1, tree, device="cpu")
+            back = restore_checkpoint(d, 1, tree)
+        for want, got, card in zip(tree_lib.leaves(tree),
+                                   tree_lib.leaves(cpu),
+                                   tree_lib.leaves(back)):
+            assert got.device.type == "cpu" and card.device == want.device
+            assert got.dtype == want.dtype
+            assert torch.equal(got.view(torch.int16) if got.dtype ==
+                               torch.bfloat16 else got,
+                               (want.view(torch.int16) if want.dtype ==
+                                torch.bfloat16 else want).cpu())
+            assert torch.equal(card, want)

@@ -35,7 +35,16 @@ def test_port_has_its_modules():
                  "src/repro_torch/models/lm/ssm.py",
                  "src/repro_torch/models/lm/transformer.py",
                  "src/repro_torch/launch/serve.py",
-                 "src/repro_torch/launch/serve_lm.py"):
+                 "src/repro_torch/launch/serve_lm.py",
+                 "src/repro_torch/launch/router.py",
+                 "src/repro_torch/launch/train_std.py",
+                 "src/repro_torch/runtime/fault_tolerance.py",
+                 "src/repro_torch/runtime/collectives.py",
+                 "src/repro_torch/optim/optimizers.py",
+                 "src/repro_torch/optim/schedules.py",
+                 "src/repro_torch/optim/grad_utils.py",
+                 "src/repro_torch/checkpoint/checkpoint.py",
+                 "src/repro_torch/core/tree.py"):
         assert want in names
 
 
