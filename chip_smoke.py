@@ -23,9 +23,13 @@ non-zero before the result line is printed.
    1e-4, K3 labels exact).  K4 at Zamba2-2.7B's prefill (B 4, H 32,
    L 512, D 80, causal) in bf16 and f32, at TinyLlama's GQA heads with a
    ragged length (1, Hq 32, Hkv 4, L 1000, D 64) in bf16 and f32 and at
-   Mistral-NeMo's (1, Hq 32, Hkv 8, L 1024, D 128) in bf16 (``K4_CASES``;
-   in f32 q and k are scaled by 2 and v by 32, where one TF32 term
-   would miss the tolerance); K5 at
+   Mistral-NeMo's (1, Hq 32, Hkv 8, L 1024, D 128) in bf16, at
+   Kimi-K2's prefill (4, Hq 64, Hkv 8, L 512, D 112) in bf16 and f32,
+   at InternVL2-76B's (4, Hq 64, Hkv 8, L 768: 256 patches and 512
+   tokens, D 128), Grok-1's (4, Hq 48, Hkv 8, L 512, D 128) and Whisper's
+   decoder's (4, H 6, L 64, D 64) in bf16 (``K4_CASES``; in f32 q and k
+   are scaled by 2 and v by 32, where one TF32 term would miss the
+   tolerance); K5 at
    Zamba2's prefill (BC 16, G 1, HPG 80, Lc 128, N 64, P 64) on the
    strided views ``ssd_scan`` hands it; both against the plain
    version on the same card tensors (K4 atol/rtol 2e-3 in f32, 1.6e-2 in
@@ -115,16 +119,25 @@ non-zero before the result line is printed.
    serve a 2048x512 and a 512x2048 request, boxes equal to SingleDevice's
    on the same padded plane.  Step times are host-clock medians of 3 with
    all slots on one card, not multi-GPU speeds.
-4. LM serving at full width and depth: ``zamba2-2.7b`` (54 Mamba2 layers,
-   one shared attention block at 9 sites, 2.42 B parameters) with seeded
-   random bf16 weights drawn on the card, batch 4, 512-token prompts,
-   then 31 greedy decode steps through ``launch/serve_lm``'s ``prefill``
-   and ``decode``.  The counters are zeroed before the prefill: K4 must
-   run 9 times and K5 54 times, and decode must add none.  Logits are
-   finite and tokens inside the vocabulary; prefill ms, decode tokens/s
-   and the peak device memory are printed.  A forward pass of the same
-   weights and prompts with the plain version at every attention site
-   holds K4 against it on each of the 9 sites' own q, k, v (bf16,
+4. LM serving at full width (``phase_lm_serving``), one model of
+   ``LM_FAMILIES`` at a time, each freed before the next:
+   ``zamba2-2.7b`` (all 54 Mamba2 layers, one shared attention block at
+   9 sites), ``grok-1-314b`` (2 of 64 layers), ``kimi-k2-1t-a32b`` (1 of
+   61), ``internvl2-76b`` (8 of 80; a 256-patch ``prefix_embed`` before
+   the prompt) and ``whisper-tiny`` (full: 4 encoder and 4 decoder layers
+   over 1500 stub frames).  Seeded bf16 weights drawn on the card, the
+   frontend stubs' frames seeded at 0.1 scale in ``input_specs``' shape,
+   batch 4, 512-token prompts (whisper 64), then 31 greedy decode steps
+   through ``launch/serve_lm``'s ``prefill`` and ``decode`` from
+   ``decode_start``.  The counters are zeroed before the prefill: K4 must
+   run 9 times and K5 54 times for Zamba2, K4 once per decoder layer for
+   the others (Whisper's encoder runs dense, as in the reference), no
+   other kernel; decode must add none.  Logits finite and tokens inside
+   the vocabulary; prefill ms (median of 3 after the first), decode
+   tokens/s, peak device memory and, for the MoE models, the share of
+   (token, slot) pairs dropped at prefill are printed.  A forward pass of
+   the same weights and prompts with the plain version at every
+   attention site holds K4 against it on each site's own q, k, v (bf16,
    atol/rtol 1.6e-2), and the prefill's logits are compared with that
    plain route's and with the dense route's (``_sdpa_full``, P also
    rounded to bf16): the differences, and the top-two gap wherever the
@@ -135,6 +148,23 @@ non-zero before the result line is printed.
    weights (max abs 1e-2), and 8 decode steps against the one-shot
    forward over all 128 tokens at the same positions (max abs 5e-3, the
    reference's own decode-vs-forward tolerance).
+5b. Parity of the moe, audio and vlm families on the card
+   (``phase_lm_family_parity``): ``whisper-tiny`` (full) and
+   ``internvl2-76b`` (4 layers, CPU runs of about 20 s) at full width in
+   f32, batch 1, the attention projections rescaled to their true fan-in
+   (``_fan_in_scaled``): the whole prefill against the port's CPU run of
+   the same call (max abs 1e-2), every layer of it against the CPU run of
+   that layer on the card's input to it (2e-3 of the output's largest
+   value), the head (1e-2), and 8 decode steps against the one-shot
+   forward (max abs 5e-3; vlm at cache_len = frontend_len + t).  MoE at
+   full width, card only (a MoE decode step routes other tokens together
+   than the one-shot forward, so the two differ by capacity, in the
+   reference too): kimi's router on 64 tokens (its f32 gates routed on
+   the card and on the CPU: expert ids, ranks and keep mask equal);
+   grok's routed block on 64 tokens at capacity factor 16 within 1e-2 of
+   the per-expert dense mixture; grok's and kimi's ``moe`` with d_ff cut
+   to 1024 and 128, in f32 on the card against the CPU run on the same
+   inputs (1e-4).
 
 6. The serving fleet and STD training.
    6a: a ``Router`` over 3 ``ServiceReplica``s, each an STDService on
@@ -166,7 +196,8 @@ non-zero before the result line is printed.
 The last lines are a ``{"kernels": [...]}`` JSON line (``launches``: the
 VGG-16 PixelLink forward's and the Zamba2 prefill's counts;
 ``launches_by_path``: ResNet-50's forward, one EAST and DB serving
-batch, the plans, one fleet replica batch and the deploy check), the
+batch, the plans, one fleet replica batch, the deploy check and each
+phase-4 model's prefill), the
 card's name and power limit from nvidia-smi, and ``{"ok": true,
 "device": {...}}``.
 
@@ -176,8 +207,8 @@ head_logits, ResNet-50's s4b*_c1), K4 (every shape), K5 and their
 library calls in phase 1, over one engine step of each configuration in
 phase 2, over one serving step (device box tail and copy to the host
 included) at batch 1 and 4 in phase 3 and over one prefill and one
-decode step of phase 4, and prints the device time by kernel and the
-device's busy share of each.
+decode step of each model of phase 4, and prints the
+device time by kernel and the device's busy share of each.
 """
 import contextlib
 import dataclasses
@@ -225,7 +256,24 @@ K4_CASES = (
     ("zamba2 prefill f32", (LM_BATCH, 32, 32, LM_PROMPT, 80), "float32"),
     ("tinyllama GQA ragged bf16", (1, 32, 4, 1000, 64), "bfloat16"),
     ("tinyllama GQA ragged f32", (1, 32, 4, 1000, 64), "float32"),
-    ("mistral-nemo GQA bf16 D 128", (1, 32, 8, 1024, 128), "bfloat16"))
+    ("mistral-nemo GQA bf16 D 128", (1, 32, 8, 1024, 128), "bfloat16"),
+    ("kimi-k2 prefill bf16 D 112", (LM_BATCH, 64, 8, LM_PROMPT, 112),
+     "bfloat16"),
+    ("kimi-k2 prefill f32 D 112", (LM_BATCH, 64, 8, LM_PROMPT, 112),
+     "float32"),
+    ("internvl2 prefill bf16", (LM_BATCH, 64, 8, 256 + LM_PROMPT, 128),
+     "bfloat16"),
+    ("grok-1 prefill bf16 GQA 6", (LM_BATCH, 48, 8, LM_PROMPT, 128),
+     "bfloat16"),
+    ("whisper decoder prefill bf16", (LM_BATCH, 6, 6, 64, 64), "bfloat16"))
+# phase 4: arch, decoder layers kept (None: all), prompt length, K4 and K5
+# launches per prefill (Zamba2: 9 shared-attention sites and 54 Mamba2
+# layers; the others: K4 once per decoder layer, Whisper's encoder dense)
+LM_FAMILIES = (("zamba2-2.7b", None, LM_PROMPT, 9, 54),
+               ("grok-1-314b", 2, LM_PROMPT, 2, 0),
+               ("kimi-k2-1t-a32b", 1, LM_PROMPT, 1, 0),
+               ("internvl2-76b", 8, LM_PROMPT, 8, 0),
+               ("whisper-tiny", None, 64, 4, 0))
 
 
 def card_name_and_power() -> str:
@@ -1491,7 +1539,8 @@ def phase_plans(torch, np):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: Zamba2-2.7B serving at full width and depth
+# phase 4: LM serving at full width: Zamba2 and the moe, audio and vlm
+# families
 # ---------------------------------------------------------------------------
 
 def _finite(torch, name, t) -> None:
@@ -1515,14 +1564,16 @@ def logit_gap(torch, what, got, want) -> None:
         f"{at} (median over all {float(gap.median()):.4g})")
 
 
-def compare_routes(torch, model, params, prompts, logits,
-                   n_sites: int) -> None:
+def compare_routes(torch, model, params, prompts, logits, n_sites: int,
+                   prefix=None) -> None:
     """The prefill's logits (attention through K4) against two other
     routes on the same weights and prompts, K5 in all three: the plain
     route, where every attention site runs ``flash_attention_plain``
     (f32 softmax and P.V) and K4 is held against it on that site's own
     q, k, v at phase 1's bf16 tolerance; and the dense route
-    (``layers._sdpa_full``, P rounded to bf16 before P.V)."""
+    (``layers._sdpa_full``, P rounded to bf16 before P.V).  The logits'
+    distances are printed, not gated: in bf16 the plain and dense routes
+    end as far from each other as from K4's."""
     from repro_torch.kernels.flash_attention import flash_attention_plain
     from repro_torch.launch import serve_lm
     from repro_torch.models.lm import layers
@@ -1542,11 +1593,11 @@ def compare_routes(torch, model, params, prompts, logits,
 
     layers.flash_attention = plain_op
     try:
-        plain = model.forward(params, prompts,
+        plain = model.forward(params, prompts, prefix_embed=prefix,
                               ctx_extra=serve_lm.PREFILL_CTX)
     finally:
         layers.flash_attention = kernel_op
-    dense = model.forward(params, prompts,
+    dense = model.forward(params, prompts, prefix_embed=prefix,
                           ctx_extra={"use_flash": False, "use_kernel": True})
     for name, t in (("plain-route", plain), ("dense-route", dense)):
         _finite(torch, f"{name} logits", t)
@@ -1563,78 +1614,154 @@ def compare_routes(torch, model, params, prompts, logits,
         str(t[:, -1].argmax(-1).tolist()) for t in (logits, plain, dense)))
 
 
-def phase_lm_serving(torch, profile=False):
-    from repro_torch import kernels
+def _family_config(arch: str, layers):
     from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
+
+
+def _free(torch) -> None:
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def _drop_tally(routed: list):
+    """Records each MoE layer's (pairs, dropped pairs) on the card while
+    active (read after the run)."""
+    from repro_torch.models.lm import moe
+
+    inner = moe.route
+
+    def recorded(gates, table):
+        r = inner(gates, table)
+        routed.append((r.keep.numel(), (~r.keep).sum()))
+        return r
+
+    moe.route = recorded
+    try:
+        yield
+    finally:
+        moe.route = inner
+
+
+def serve_family(torch, arch: str, layers, prompt_len: int, k4: int,
+                 k5: int, profile=False) -> dict:
+    """One model of phase 4: seeded bf16 weights on the card, batch 4, a
+    prefill of ``prompt_len`` tokens (and the stub's frames), 31 greedy
+    decode steps, then ``compare_routes`` on the same prompts.  Returns
+    the prefill's launch counts."""
+    from repro_torch import kernels
     from repro_torch.launch import serve_lm
     from repro_torch.models.lm import LMModel
 
-    cfg = get_config("zamba2-2.7b")
+    cfg = _family_config(arch, layers)
+    what = (f"{arch} ({cfg.n_layers} of "
+            f"{_family_config(arch, None).n_layers} layers)"
+            if layers is not None else arch)
+    held = torch.cuda.memory_allocated()     # by earlier phases
     model = LMModel(cfg, "cuda")
     t0 = time.perf_counter()
-    params = model.init_params(
-        torch.Generator(device="cuda").manual_seed(0))
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
-    log(f"zamba2-2.7b: {cfg.param_count():,} parameters drawn on the card "
-        f"in {time.perf_counter() - t0:.1f} s, "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-    prompts = torch.randint(
-        0, cfg.vocab, (LM_BATCH, LM_PROMPT), device="cuda",
-        generator=torch.Generator(device="cuda").manual_seed(1))
-    max_len = LM_PROMPT + LM_TOKENS
+    log(f"{what}: {cfg.param_count():,} parameters drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{(torch.cuda.memory_allocated() - held) / 2**30:.2f} GiB")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab, (LM_BATCH, prompt_len),
+                            device="cuda", generator=gen)
+    prefix = serve_lm.prefix_embed_for(
+        cfg, LM_BATCH, torch.Generator(device="cuda").manual_seed(9))
+    start = serve_lm.decode_start(cfg, prompt_len)
+    max_len = start + LM_TOKENS
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
+    routed = []
     kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    tok, logits, cache = serve_lm.prefill(model, params, prompts, max_len)
-    torch.cuda.synchronize()
+    with _drop_tally(routed):
+        t0 = time.perf_counter()
+        tok, logits, cache = serve_lm.prefill(model, params, prompts,
+                                              max_len, prefix)
+        torch.cuda.synchronize()
     first_ms = (time.perf_counter() - t0) * 1e3
     launches = kernels.launch_counts()
     want = dict.fromkeys(launches, 0)
-    want.update(flash_attention_padded=9, ssd_chunk=54)
-    log(f"prefill launches {launches} (first call {first_ms:.1f} ms)")
+    want.update(flash_attention_padded=k4, ssd_chunk=k5)
+    log(f"{what} prefill launches {launches} (first call {first_ms:.1f} ms)")
     if launches != want:
-        fail(f"prefill launch counts {launches} != {want}")
-    _finite(torch, "prefill logits", logits)
+        fail(f"{what}: prefill launch counts {launches} != {want}")
+    _finite(torch, f"{what} prefill logits", logits)
+    if tuple(logits.shape) != (LM_BATCH, prompt_len, cfg.vocab):
+        fail(f"{what}: prefill logits {tuple(logits.shape)}")
+    drops = ""
+    if routed:
+        pairs = sum(n for n, _ in routed)
+        dropped = int(sum(d for _, d in routed))
+        drops = (f"; {dropped} of {pairs} (token, slot) pairs dropped at "
+                 f"prefill ({100 * dropped / pairs:.2f}%) over "
+                 f"{len(routed)} MoE layers")
 
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    rest, dlogits, cache = serve_lm.decode(model, params, tok, cache,
-                                           LM_PROMPT, LM_TOKENS - 1)
+    rest, dlogits, cache = serve_lm.decode(model, params, tok, cache, start,
+                                           LM_TOKENS - 1)
     torch.cuda.synchronize()
     t_dec = time.perf_counter() - t0
     if any(kernels.launch_counts().values()):
-        fail(f"decode launched kernels: {kernels.launch_counts()}")
-    _finite(torch, "decode logits", dlogits)
-    gen = torch.cat([tok[:, None], rest], dim=1)
-    if gen.shape != (LM_BATCH, LM_TOKENS) or not bool(
-            ((gen >= 0) & (gen < cfg.vocab)).all()):
-        fail(f"generated tokens {tuple(gen.shape)} outside [0, {cfg.vocab})")
+        fail(f"{what}: decode launched kernels {kernels.launch_counts()}")
+    _finite(torch, f"{what} decode logits", dlogits)
+    gen_toks = torch.cat([tok[:, None], rest], dim=1)
+    if gen_toks.shape != (LM_BATCH, LM_TOKENS) or not bool(
+            ((gen_toks >= 0) & (gen_toks < cfg.vocab)).all()):
+        fail(f"{what}: generated tokens {tuple(gen_toks.shape)} outside "
+             f"[0, {cfg.vocab})")
     peak = torch.cuda.max_memory_allocated()
-    compare_routes(torch, model, params, prompts, logits,
-                   want["flash_attention_padded"])
+    del cache, dlogits
+    compare_routes(torch, model, params, prompts, logits, k4, prefix)
 
     steps = []
     for _ in range(3):
         t0 = time.perf_counter()
-        _, again, _ = serve_lm.prefill(model, params, prompts, max_len)
+        _, again, _ = serve_lm.prefill(model, params, prompts, max_len,
+                                       prefix)
         torch.cuda.synchronize()
         steps.append((time.perf_counter() - t0) * 1e3)
-    log(f"prefill logits bit-equal to the first prefill's: "
+    log(f"{what} prefill logits bit-equal to the first prefill's: "
         f"{torch.equal(again, logits)}")
+    del again
     tps = LM_BATCH * (LM_TOKENS - 1) / t_dec
-    log(f"zamba2-2.7b batch {LM_BATCH} prompt {LM_PROMPT}: prefill "
-        f"{statistics.median(steps):.2f} ms (median of 3 after the first); "
-        f"decode {LM_TOKENS - 1} steps {t_dec * 1e3:.1f} ms, {tps:.1f} "
-        f"tokens/s; peak device memory {peak / 2**30:.2f} GiB; sample "
-        f"{gen[0, :8].tolist()}")
+    log(f"{what} batch {LM_BATCH} prompt {prompt_len}"
+        f"{f' + {cfg.frontend_len} stub frames' if prefix is not None else ''}"
+        f": prefill {statistics.median(steps):.2f} ms (median of 3 after "
+        f"the first; {', '.join(f'{t:.2f}' for t in steps)}); decode "
+        f"{LM_TOKENS - 1} steps {t_dec * 1e3:.1f} ms, {tps:.1f} tokens/s; "
+        f"peak device memory {peak / 2**30:.2f} GiB ({held / 2**30:.2f} of "
+        f"it held by earlier phases){drops}; sample "
+        f"{gen_toks[0, :8].tolist()}")
     if profile:
+        _, _, cache = serve_lm.prefill(model, params, prompts, max_len,
+                                       prefix)
         profile_step(torch, serve_lm.prefill, model, params, prompts,
-                     max_len, what="zamba2 prefill")
-        profile_step(torch, model.decode_step, params, rest[:, -1:], cache,
-                     max_len - 1, what="zamba2 decode step")
+                     max_len, prefix, what=f"{arch} prefill")
+        profile_step(torch, model.decode_step, params, tok[:, None], cache,
+                     start, what=f"{arch} decode step")
     return launches
+
+
+def phase_lm_serving(torch, profile=False) -> dict:
+    _free(torch)
+    out = {}
+    for arch, layers, prompt_len, k4, k5 in LM_FAMILIES:
+        t0 = time.perf_counter()
+        out[f"{arch} prefill"] = serve_family(torch, arch, layers,
+                                              prompt_len, k4, k5,
+                                              profile=profile)
+        _free(torch)
+        log(f"{arch} took {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1686,6 +1813,209 @@ def phase_lm_parity(torch):
         fail(f"card prefill logits differ from the CPU run by {d_prefill}")
     if d_decode > 5e-3:
         fail(f"decode logits differ from the forward pass by {d_decode}")
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: parity of the new families on the card
+# ---------------------------------------------------------------------------
+
+def _fan_in_scaled(params) -> None:
+    """Rescales the attention projections in place to the fan-in of the
+    axes they contract.  The seeded ``scaled`` init (the reference's) takes
+    shape[-2] as the fan-in: n_heads for wq, wk, wv (d, n, hd) and head_dim
+    for wo (n, hd, d).  So q and k come out with elements of std about
+    sqrt(hd) and scores of std about hd, every softmax is near one-hot,
+    and a relative move of a layer's input comes out many-fold larger:
+    two f32 runs of Whisper's prefill then end O(1) apart.  At fan-ins d
+    and n*hd the scores have std about 1."""
+    for key, leaf in params.items():
+        if isinstance(leaf, dict):
+            _fan_in_scaled(leaf)
+        elif key in ("wq", "wk", "wv"):
+            leaf.mul_((leaf.shape[-2] / leaf.shape[-3]) ** 0.5)
+        elif key == "wo":
+            leaf.mul_(leaf.shape[-3] ** -0.5)
+
+
+def family_parity(torch, arch: str, layers, prompt_len: int) -> None:
+    """f32 at full width, batch 1, the attention projections rescaled by
+    ``_fan_in_scaled``.  The card's whole prefill (K4 at the decoder's
+    self-attention) against the port's CPU run of the same call (1e-2);
+    every layer of it against the CPU run of that layer on the card's
+    input to it (2e-3 of the layer output's largest value: a wrong mask,
+    scale or rotation moves it by tenths) and the head on the card's last
+    hidden state (1e-2), which say where a whole-prefill gap comes from;
+    8 decode steps against the one-shot forward over the same tokens
+    (5e-3)."""
+    from repro_torch.launch import serve_lm
+    from repro_torch.models.lm import LMModel
+
+    cfg = dataclasses.replace(_family_config(arch, layers),
+                              param_dtype="float32", compute_dtype="float32")
+    model = LMModel(cfg, "cuda")
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(2))
+    _fan_in_scaled(params)
+    prompt = torch.randint(
+        0, cfg.vocab, (1, prompt_len), device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(3))
+    prefix = serve_lm.prefix_embed_for(
+        cfg, 1, torch.Generator(device="cuda").manual_seed(4))
+    start = serve_lm.decode_start(cfg, prompt_len)
+
+    records = []        # (encoder?, layer, input, ctx, output) of the prefill
+    inner = model._layer
+
+    def recorded(fn, stacked, i, h, ctx, stacked_cache=None):
+        y = inner(fn, stacked, i, h, ctx, stacked_cache)
+        records.append((stacked is params.get("enc_layers"), i, h,
+                        dict(ctx), y))
+        return y
+
+    model._layer = recorded
+    tok, logits, cache = serve_lm.prefill(model, params, prompt, start + 8,
+                                          prefix)
+    del model._layer
+    head = model._head(params, records[-1][4])
+    rest, dlogits, _ = serve_lm.decode(model, params, tok, cache, start, 8)
+    seq = torch.cat([prompt, tok[:, None].long(), rest[:, :7].long()], dim=1)
+    full = model.forward(params, seq, prefix_embed=prefix)
+    d_decode = float((dlogits - full[:, prompt_len:]).abs().max())
+    del cache, full, dlogits
+
+    t0 = time.perf_counter()
+    cpu_params = _to_cpu(params)
+    del params
+    _free(torch)
+    cpu_model = LMModel(cfg, "cpu")
+    _, cpu_logits, _ = serve_lm.prefill(cpu_model, cpu_params, prompt.cpu(),
+                                        start + 8, prefix.cpu())
+    d_prefill = float((logits.cpu() - cpu_logits).abs().max())
+    fns = {True: getattr(cpu_model, "enc_block", cpu_model.block).fn(),
+           False: cpu_model.block.fn()}
+    stages = []
+    for enc, i, h, ctx, y in records:
+        want = cpu_model._layer(
+            fns[enc], cpu_params["enc_layers" if enc else "layers"], i,
+            h.cpu(), {k: v.cpu() if isinstance(v, torch.Tensor) else v
+                      for k, v in ctx.items()})
+        stages.append((f"{'enc' if enc else 'dec'}{i}",
+                       float((y.cpu() - want).abs().max()),
+                       float(want.abs().max())))
+    d_head = float((head.cpu() - cpu_model._head(
+        cpu_params, records[-1][4].cpu())).abs().max())
+    cpu_s = time.perf_counter() - t0
+    log(f"{arch} f32 parity, {cfg.n_layers} decoder layers"
+        f"{f' + {cfg.encoder_layers} encoder' if cfg.encoder_layers else ''}"
+        f", prompt {prompt_len} + {cfg.frontend_len} stub frames: each "
+        f"layer on the card's input, card vs CPU max abs (of the output's "
+        f"largest value) " + ", ".join(f"{n} {d:.3g} ({m:.3g})"
+                                       for n, d, m in stages)
+        + f"; head {d_head:.3g}; whole prefill card vs CPU max abs "
+        f"{d_prefill:.3g} (logit std {float(cpu_logits.std()):.3g}; CPU "
+        f"runs, copy included, {cpu_s:.1f} s); 8 decode steps from "
+        f"position {start} vs one-shot forward max abs {d_decode:.3g}")
+    for name, d, m in stages:
+        if d > 2e-3 * max(m, 1.0):
+            fail(f"{arch}: layer {name} on the card differs from the CPU "
+                 f"run on the same input by {d} (output max {m})")
+    if d_head > 1e-2:
+        fail(f"{arch}: the head on the card differs from the CPU by {d_head}")
+    if d_prefill > 1e-2:
+        fail(f"{arch}: card prefill logits differ from the CPU run by "
+             f"{d_prefill}")
+    if d_decode > 5e-3:
+        fail(f"{arch}: decode logits differ from the forward pass by "
+             f"{d_decode}")
+
+
+def moe_parity(torch) -> None:
+    """The routed block at full width on the card: kimi's routing equal to
+    the CPU's on the same gates; grok's block at capacity factor 16 against
+    the per-expert dense mixture; both archs' block in f32 at a cut d_ff
+    against the CPU run."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import moe
+    from repro_torch.models.lm.params import materialize
+
+    def table(cfg, **kw):
+        return {"n_experts": cfg.n_experts, "top_k": cfg.top_k,
+                "capacity_factor": cfg.capacity_factor,
+                "fission": cfg.moe_fission, **kw}
+
+    def block(cfg, d_ff, dtype, seed):
+        meta = moe.moe_meta(cfg.d_model, d_ff, cfg.n_experts, dtype)
+        return materialize(meta, torch.Generator(device="cuda")
+                           .manual_seed(seed), "cuda")
+
+    def tokens(cfg, dtype, seed):
+        return torch.randn((1, 64, cfg.d_model), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(seed)).to(dtype)
+
+    kimi, grok = get_config("kimi-k2-1t-a32b"), get_config("grok-1-314b")
+    # kimi's router: 64 tokens, 384 experts, top 8
+    p = {"router": materialize(
+        moe.moe_meta(kimi.d_model, 64, kimi.n_experts, "bfloat16")["router"],
+        torch.Generator(device="cuda").manual_seed(5), "cuda")}
+    gates = moe.router_gates(p, tokens(kimi, torch.bfloat16, 6)[0])
+    got, want = moe.route(gates, table(kimi)), moe.route(gates.cpu(),
+                                                         table(kimi))
+    same = {n: bool(torch.equal(getattr(got, n).cpu(), getattr(want, n)))
+            for n in ("topi", "pos", "keep")}
+    log(f"kimi-k2 router on 64 tokens: card vs CPU on the same f32 gates "
+        f"{same}, cap {got.cap} / {want.cap}, "
+        f"{int((~got.keep).sum())} of {got.keep.numel()} pairs dropped")
+    if not all(same.values()) or got.cap != want.cap:
+        fail(f"kimi-k2 routing on the card differs from the CPU's: {same}")
+
+    # grok's block at full width, nothing dropped
+    p = block(grok, grok.d_ff, "bfloat16", 7)
+    x = tokens(grok, torch.bfloat16, 8)
+    t16 = table(grok, capacity_factor=16.0)
+    y = moe.moe(p, x, table=t16).float()[0]
+    xt = x[0].float()
+    r = moe.route(moe.router_gates(p, x[0]), t16)
+    if not bool(r.keep.all()):
+        fail("grok's block at capacity factor 16 dropped a pair")
+    dense = torch.zeros_like(xt)
+    for e in range(grok.n_experts):
+        h = F.silu(xt @ p["wg"][e].float()) * (xt @ p["wu"][e].float())
+        w = torch.where(r.topi == e, r.topv, 0.0).sum(-1)
+        dense += (h @ p["wd"][e].float()) * w[:, None]
+    err = float((y - dense).abs().max())
+    log(f"grok-1 routed block, bf16, 64 tokens at capacity factor 16 vs the "
+        f"per-expert dense mixture in f32: max abs {err:.3g} (output max "
+        f"{float(dense.abs().max()):.3g})")
+    if not torch.allclose(y, dense, atol=1e-2, rtol=1e-2):
+        fail(f"grok's routed block differs from the dense mixture by {err}")
+    del p, dense, x, y
+    _free(torch)
+
+    # one layer's block in f32 at a cut d_ff, card against CPU
+    for cfg, d_ff in ((grok, 1024), (kimi, 128)):
+        p = block(cfg, d_ff, "float32", 9)
+        x = tokens(cfg, torch.float32, 10)
+        got = moe.moe(p, x, table=table(cfg))
+        want = moe.moe(_to_cpu(p), x.cpu(), table=table(cfg))
+        err = float((got.cpu() - want).abs().max())
+        log(f"{cfg.name} moe, f32, d_ff cut to {d_ff}, 64 tokens: card vs "
+            f"CPU max abs {err:.3g} (output max "
+            f"{float(want.abs().max()):.3g})")
+        if not torch.allclose(got.cpu(), want, atol=1e-4, rtol=1e-4):
+            fail(f"{cfg.name} moe on the card differs from the CPU run by "
+                 f"{err}")
+        del p, x, got
+        _free(torch)
+
+
+def phase_lm_family_parity(torch) -> None:
+    for arch, layers, prompt_len in (("whisper-tiny", None, 64),
+                                     ("internvl2-76b", 4, 32)):
+        family_parity(torch, arch, layers, prompt_len)
+        _free(torch)
+    moe_parity(torch)
 
 
 # ---------------------------------------------------------------------------
@@ -2024,17 +2354,20 @@ def main() -> None:
              f"{checked['band_row_launches']} times, not once per band")
     for name, extra in checked["rows"].items():
         rows[name] += extra
-    lm = timed("phase 4", phase_lm_serving, torch, profile=profile)
+    served_lm = timed("phase 4, LM serving", phase_lm_serving, torch,
+                      profile=profile)
     timed("phase 5", phase_lm_parity, torch)
+    timed("phase 5b, family parity", phase_lm_family_parity, torch)
     fleet = timed("phase 6a, fleet", phase_fleet, torch, np, served)
     trained = timed("phase 6b, training", phase_training, torch, np)
     timed("phase 6c, train_std", phase_train_example, torch)
     deploy = timed("phase 6d, deploy check", phase_deploy, torch, np,
                    trained)
     launches = {k: fcn[k] for k in FCN_KERNELS}
+    lm = served_lm["zamba2-2.7b prefill"]
     launches.update({k: lm[k] for k in LM_KERNELS})
     by_path = {"pixellink_resnet50 forward": resnet, **zoo, **plans,
-               **fleet, **deploy}
+               **fleet, **deploy, **served_lm}
 
     meta = {
         "winograd_tiles": ("src/repro_torch/csrc/winograd_conv.cu",

@@ -8,7 +8,8 @@ from __future__ import annotations
 import importlib
 from typing import Dict, List
 
-from .base import SHAPES, ArchConfig, ShapeConfig, shape_applicable
+from .base import (SHAPES, ArchConfig, ShapeConfig, input_specs,
+                   shape_applicable)
 
 # arch id -> module name
 ARCH_MODULES: Dict[str, str] = {
@@ -47,5 +48,6 @@ def all_configs() -> Dict[str, ArchConfig]:
 
 __all__ = [
     "ARCH_IDS", "ARCH_MODULES", "SHAPES", "ArchConfig", "ShapeConfig",
-    "all_configs", "get_config", "get_smoke_config", "shape_applicable",
+    "all_configs", "get_config", "get_smoke_config", "input_specs",
+    "shape_applicable",
 ]

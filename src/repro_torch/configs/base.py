@@ -8,7 +8,9 @@ are those of the reference's ``ArchConfig``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
+
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,3 +115,27 @@ def shape_applicable(cfg: ArchConfig, shape: ShapeConfig) -> Tuple[bool, str]:
             "sub-quadratic path (skip noted in DESIGN.md)"
         )
     return True, ""
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig, *,
+                batch: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """Stand-ins for every model input of ``shape``: tensors on the meta
+    device (shape and dtype, no storage).  A frontend arch's
+    ``prefix_embed`` is the stub's (B, frontend_len, d_model) output in
+    the compute type."""
+    b = batch if batch is not None else shape.global_batch
+    s = shape.seq_len
+
+    def spec(dims, dtype=torch.int32):
+        return torch.empty(dims, dtype=dtype, device="meta")
+
+    if shape.kind == "decode":
+        # one new token against a seq_len-deep cache
+        return {"tokens": spec((b, 1)), "cache_len": spec(())}
+    specs = {"tokens": spec((b, s))}
+    if shape.kind == "train":
+        specs["labels"] = spec((b, s))
+    if cfg.frontend != "none":
+        specs["prefix_embed"] = spec((b, cfg.frontend_len, cfg.d_model),
+                                     getattr(torch, cfg.compute_dtype))
+    return specs

@@ -6,10 +6,14 @@ Prefill runs attention through K4 (``use_flash``) and the Mamba2 scan
 through K5 (``use_kernel``); decode is torch ops.  On the CPU (smoke):
 
     PYTHONPATH=src python -m repro_torch.launch.serve_lm --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve_lm --device cpu \
+        --arch whisper-tiny
 
-``--device`` defaults to ``cuda``; ``--arch`` takes any dense, ssm or
-hybrid id of ``repro_torch.configs`` and serves its smoke configuration
-with seeded random weights.
+``--device`` defaults to ``cuda``; ``--arch`` takes any id of
+``repro_torch.configs`` and serves its smoke configuration with seeded
+random weights.  A frontend arch (``audio``, ``vlm``) gets seeded
+``prefix_embed`` frames at 0.1 scale in ``input_specs``' shape, standing
+in for its frontend stub.
 """
 from __future__ import annotations
 
@@ -18,19 +22,45 @@ import time
 
 import torch
 
-from repro_torch.configs import get_smoke_config
+from repro_torch.configs import (SHAPES, ArchConfig, get_smoke_config,
+                                 input_specs)
 from repro_torch.core.device import resolve_device
 from repro_torch.models.lm import LMModel
 from repro_torch.models.lm import params as params_lib
 
 PREFILL_CTX = {"use_flash": True, "use_kernel": True}
+PREFIX_SCALE = 0.1      # the stub frames' scale, as the reference's tests draw
 
 
-def prefill(model: LMModel, params, prompts: torch.Tensor, max_len: int):
+def decode_start(cfg: ArchConfig, prompt_len: int) -> int:
+    """The cache position of the first decode step after a prefill of
+    ``prompt_len`` tokens: a ``vlm`` prefix takes the first frontend_len
+    positions."""
+    return prompt_len + (cfg.frontend_len if cfg.family == "vlm" else 0)
+
+
+def prefix_embed_for(cfg: ArchConfig, batch: int, generator: torch.Generator):
+    """Seeded stand-in frames of the frontend stub (``input_specs``'
+    ``prefix_embed``: (batch, frontend_len, d_model) in the compute type)
+    on the generator's device, or None for an arch without a frontend."""
+    spec = input_specs(cfg, SHAPES["prefill_32k"], batch=batch).get(
+        "prefix_embed")
+    if spec is None:
+        return None
+    return (torch.randn(spec.shape, generator=generator,
+                        device=generator.device) * PREFIX_SCALE
+            ).to(spec.dtype)
+
+
+def prefill(model: LMModel, params, prompts: torch.Tensor, max_len: int,
+            prefix_embed=None):
     """prompts (B, L) -> (first greedy token (B,) int32, logits (B, L, V)
-    f32, cache sized for ``max_len`` positions)."""
-    logits, cache = model.forward(params, prompts, cache_out=True,
-                                  max_len=max_len, ctx_extra=PREFILL_CTX)
+    f32, cache sized for ``max_len`` positions).  ``prefix_embed`` is the
+    frontend stub's output for ``audio`` and ``vlm``; decode continues at
+    ``decode_start(model.cfg, L)``."""
+    logits, cache = model.forward(params, prompts, prefix_embed=prefix_embed,
+                                  cache_out=True, max_len=max_len,
+                                  ctx_extra=PREFILL_CTX)
     return logits[:, -1, :].argmax(-1).to(torch.int32), logits, cache
 
 
@@ -72,19 +102,22 @@ def main(argv=None):
                                              min_size=1)
         print("[serve_lm] weights quantized to int8 BFP mantissa streams")
 
-    max_len = args.prompt_len + args.tokens
+    start = decode_start(cfg, args.prompt_len)
+    max_len = start + args.tokens
     prompts = torch.randint(
         0, cfg.vocab, (args.batch, args.prompt_len), device=dev,
         generator=torch.Generator(device=dev).manual_seed(1))
+    prefix = prefix_embed_for(cfg, args.batch,
+                              torch.Generator(device=dev).manual_seed(9))
 
     t0 = time.perf_counter()
-    tok, _, cache = prefill(model, params, prompts, max_len)
+    tok, _, cache = prefill(model, params, prompts, max_len, prefix)
     if dev.type == "cuda":
         torch.cuda.synchronize()
     t_pre = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    rest, _, cache = decode(model, params, tok, cache, args.prompt_len,
+    rest, _, cache = decode(model, params, tok, cache, start,
                             args.tokens - 1)
     gen = torch.cat([tok[:, None], rest], dim=1)
     if dev.type == "cuda":

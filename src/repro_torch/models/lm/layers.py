@@ -271,6 +271,20 @@ def attention(p, x, *, mc=None, table=None, ctx=None):
                       p["wo"].reshape(h * hd, m)).to(x.dtype)
 
 
+def cross_attention(p, x, *, mc=None, table=None, ctx=None):
+    """Attention of x (B, L, D) over ``ctx['memory']`` (B, S, D): no RoPE,
+    not causal, K and V projected from the memory at every call (decode
+    included), as in the reference."""
+    mem = ctx["memory"].to(x.dtype)
+    q = _proj(x, p["wq"].to(x.dtype)).to(x.dtype)
+    k = _proj(mem, p["wk"].to(x.dtype)).to(x.dtype)
+    v = _proj(mem, p["wv"].to(x.dtype)).to(x.dtype)
+    o = _sdpa_full(q, k, v, causal=False)
+    h, hd, m = p["wo"].shape
+    return matmul_f32(o.to(x.dtype).reshape(*o.shape[:2], h * hd),
+                      p["wo"].reshape(h * hd, m)).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # MLPs
 # ---------------------------------------------------------------------------
@@ -310,24 +324,18 @@ def mlp(p, x, *, mc=None, table=None, ctx=None):
 # registry: the interpreter's dispatch table
 # ---------------------------------------------------------------------------
 
-def _not_ported(what: str, item: str):
-    def fn(p, x, *, mc=None, table=None, ctx=None):
-        raise NotImplementedError(
-            f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
-    return fn
-
-
 def registry() -> Dict[ExtOp, Any]:
+    from . import moe as moe_mod
     from . import ssm as ssm_mod
 
     return {
         ExtOp.RMSNORM: rmsnorm,
         ExtOp.LAYERNORM: layernorm,
         ExtOp.ATTN: attention,
-        ExtOp.CROSS_ATTN: _not_ported("cross-attention", "16c"),
+        ExtOp.CROSS_ATTN: cross_attention,
         ExtOp.GLU_MLP: glu_mlp,
         ExtOp.MLP: mlp,
-        ExtOp.MOE: _not_ported("the MoE block", "16b"),
+        ExtOp.MOE: moe_mod.moe,
         ExtOp.SSD: ssm_mod.mamba2_block,
         ExtOp.EMBED: embed,
         ExtOp.LM_HEAD: lm_head,

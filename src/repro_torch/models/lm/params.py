@@ -58,6 +58,9 @@ def leaves_with_path(tree, path: Tuple[str, ...] = ()
         yield path, tree
 
 
+_DRAW_WHOLE = 1 << 31     # values drawn in one f32 temporary at most
+
+
 def _draw(m: ParamMeta, generator: torch.Generator) -> torch.Tensor:
     dt = as_dtype(m.dtype)
     if m.init == "zeros":
@@ -71,9 +74,19 @@ def _draw(m: ParamMeta, generator: torch.Generator) -> torch.Tensor:
         scale = 1.0 / math.sqrt(max(fan_in, 1))
     else:
         raise ValueError(m.init)
-    v = torch.randn(m.shape, generator=generator, dtype=torch.float32,
-                    device=generator.device)
-    return (v * scale).to(dt)
+    if int(np.prod(m.shape)) <= _DRAW_WHOLE or len(m.shape) < 3:
+        v = torch.randn(m.shape, generator=generator, dtype=torch.float32,
+                        device=generator.device)
+        return (v * scale).to(dt)
+    # a large stacked leaf (kimi-k2's experts: 5.6 G values) is drawn one
+    # matrix at a time, so no f32 temporary holds all of it
+    out = torch.empty(m.shape, dtype=dt, device=generator.device)
+    flat = out.view(-1, *m.shape[-2:])
+    for i in range(flat.shape[0]):
+        flat[i] = torch.randn(m.shape[-2:], generator=generator,
+                              dtype=torch.float32,
+                              device=generator.device) * scale
+    return out
 
 
 def materialize(tree, generator: Optional[torch.Generator] = None,

@@ -3,16 +3,22 @@ executed by ``core.interpreter.build_stream_fn`` over the datapath
 module registry, one layer at a time.
 
   dense   : [id.cache, norm, attn.add, id.cache, norm, glu_mlp.add] x L
+  moe     : the same with MOE in the MLP slot                (grok, kimi)
   ssm     : [id.cache, norm, ssd.add] x L                  (mamba2)
   hybrid  : ssm blocks + a SHARED attention block every k layers; the
             shared block's words carry the same binding name at every
             call site, so one weight copy serves them all (zamba2)
+  audio   : a non-causal encoder over the frontend stub's frames, and a
+            decoder with cross-attention to its output     (whisper)
+  vlm     : the frontend stub's patch embeddings before the token
+            embeddings of a dense decoder                   (internvl)
 
-``moe``, ``audio`` and ``vlm`` compile and count, but their forward
-passes wait for ROADMAP Queue 1 items 16b and 16c.  Parameters stay
-stacked ``(n_layers, ...)`` as in the reference, so the trees match
-leaf for leaf; the layer loop slices them.  Caches are preallocated and
-written in place; ``decode_step`` returns the same cache it was given.
+Parameters stay stacked ``(n_layers, ...)`` as in the reference, so the
+trees match leaf for leaf; the layer loop slices them.  Caches are
+preallocated and written in place; ``decode_step`` returns the same cache
+it was given.  The encoder's self-attention runs dense (``_sdpa_full``)
+even under ``use_flash``, as the reference's encoder context carries no
+flag.
 """
 from __future__ import annotations
 
@@ -35,7 +41,6 @@ from .params import (ParamMeta, as_dtype, leaves_with_path, materialize,
                      tree_map_meta)
 
 F32 = torch.float32
-_NOT_PORTED = {"moe": "16b", "audio": "16c", "vlm": "16c"}
 
 
 # ---------------------------------------------------------------------------
@@ -225,8 +230,6 @@ class LMModel:
             self.shared = attn_block_stream(cfg, prefix="shared_")
             self.block_kind = "hybrid"
         elif cfg.family == "audio":
-            # only param_meta runs for this family, so that count_params
-            # covers whisper-tiny; forward and caches raise (Queue 1 16c)
             self.block = attn_block_stream(cfg, cross=True)
             self.enc_block = attn_block_stream(cfg, causal=False,
                                                prefix="enc_")
@@ -235,13 +238,6 @@ class LMModel:
             raise ValueError(cfg.family)
         self._final_norm_meta = _norm_parts(cfg)[1]
         self._head_tbl = _common_tables(cfg)
-
-    def _check_ported(self) -> None:
-        item = _NOT_PORTED.get(self.cfg.family)
-        if item:
-            raise NotImplementedError(
-                f"the {self.cfg.family} family is not ported yet (ROADMAP "
-                f"Queue 1 item {item})")
 
     # -- parameter metadata -------------------------------------------------
     def param_meta(self) -> Dict[str, Any]:
@@ -267,7 +263,6 @@ class LMModel:
 
     # -- caches --------------------------------------------------------------
     def cache_meta(self, batch: int, max_len: int) -> Dict[str, Any]:
-        self._check_ported()
         cfg = self.cfg
         dt = as_dtype(cfg.compute_dtype)
         quant = cfg.kv_cache_dtype == "int8"
@@ -295,6 +290,10 @@ class LMModel:
             return {"layers": _stack_meta(kv(), cfg.n_layers)}
         if self.block_kind == "ssm":
             return {"layers": _stack_meta(ssm(), cfg.n_layers)}
+        if self.block_kind == "encdec":
+            return {"layers": _stack_meta(kv(), cfg.n_layers),
+                    "memory": ParamMeta((batch, cfg.frontend_len,
+                                         cfg.d_model), dt, init="zeros")}
         n_sites = cfg.n_layers // cfg.attn_every
         return {"layers": _stack_meta(ssm(), cfg.n_layers),
                 "shared_attn": _stack_meta(kv(), n_sites)}
@@ -350,14 +349,37 @@ class LMModel:
                 _write_back(cache["shared_attn"], g, sctx["cache"])
         return x
 
+    def _encode(self, params, prefix_embed):
+        """The audio encoder over the stub's frames (B, S, D): positions
+        0..S-1, non-causal, dense attention."""
+        enc = prefix_embed.to(as_dtype(self.cfg.compute_dtype))
+        ctx = {"positions": torch.arange(enc.shape[1],
+                                         device=enc.device)[None, :],
+               "mode": "full"}
+        fn = self.enc_block.fn()
+        for i in range(self.cfg.encoder_layers):
+            enc = self._layer(fn, params["enc_layers"], i, enc, ctx)
+        return enc
+
     @torch.no_grad()
-    def forward(self, params, tokens, *, positions=None,
+    def forward(self, params, tokens, *, prefix_embed=None, positions=None,
                 cache_out: bool = False, max_len: int = 0,
                 ctx_extra: Optional[Dict[str, Any]] = None):
         """Full-sequence forward (train / prefill): f32 logits (B, L, V),
-        and with ``cache_out`` the cache filled for decode."""
-        self._check_ported()
+        and with ``cache_out`` the cache filled for decode.
+        ``prefix_embed`` (B, frontend_len, D) is the frontend stub's
+        output: ``vlm`` puts it before the token embeddings (the cache
+        then holds frontend_len + L positions, and the logits are the
+        tokens' only); ``audio`` needs it, as the encoder's input."""
+        if self.block_kind == "encdec" and prefix_embed is None:
+            raise ValueError(f"{self.cfg.name} is an encoder-decoder: "
+                             f"forward needs prefix_embed, the encoder's "
+                             f"(B, {self.cfg.frontend_len}, "
+                             f"{self.cfg.d_model}) input frames")
         x = self._embed(params, tokens)
+        vlm_prefix = self.cfg.family == "vlm" and prefix_embed is not None
+        if vlm_prefix:
+            x = torch.cat([prefix_embed.to(x.dtype), x], dim=1)
         B, Lseq, _ = x.shape
         if positions is None:
             positions = torch.arange(Lseq, dtype=torch.int32,
@@ -372,8 +394,14 @@ class LMModel:
         if cache_out:
             cache = self.init_cache(B, max_len or Lseq)
             ctx["cache_len"] = 0
+        if self.block_kind == "encdec":
+            ctx["memory"] = self._encode(params, prefix_embed)
+            if cache is not None:
+                cache["memory"].copy_(ctx["memory"])
         y = self._run_blocks(params, x, ctx, cache)
         logits = self._head(params, y)
+        if vlm_prefix:
+            logits = logits[:, prefix_embed.shape[1]:]
         if cache_out:
             return logits, cache
         return logits
@@ -382,8 +410,9 @@ class LMModel:
     def decode_step(self, params, tokens, cache, cache_len: int,
                     ctx_extra: Optional[Dict[str, Any]] = None):
         """One token per sequence (B, 1) against ``cache`` at position
-        ``cache_len``: (f32 logits (B, 1, V), the cache updated in place)."""
-        self._check_ported()
+        ``cache_len``: (f32 logits (B, 1, V), the cache updated in place).
+        For ``vlm`` the prefix holds the cache's first frontend_len
+        positions."""
         x = self._embed(params, tokens)
         positions = torch.full((x.shape[0], 1), int(cache_len),
                                dtype=torch.int32, device=x.device)
@@ -394,6 +423,8 @@ class LMModel:
         }
         if ctx_extra:
             ctx.update(ctx_extra)
+        if self.block_kind == "encdec":
+            ctx["memory"] = cache["memory"]
         y = self._run_blocks(params, x, ctx, cache)
         return self._head(params, y), cache
 

@@ -851,3 +851,91 @@ class TestOnCard:
                                (want.view(torch.int16) if want.dtype ==
                                 torch.bfloat16 else want).cpu())
             assert torch.equal(card, want)
+
+    # -- the moe, audio and vlm LM families on the card -----------------------
+
+    @pytest.mark.parametrize("arch", ["grok-1-314b", "kimi-k2-1t-a32b",
+                                      "whisper-tiny", "internvl2-76b"])
+    def test_lm_family_on_card(self, arch):
+        """A smoke config's prefill on cuda:0 (f32, seeded weights drawn
+        on the CPU): one K4 launch per decoder layer and none of the
+        other kernels (Whisper's encoder runs dense), logits within 1e-2
+        of the CPU's; decode steps launch nothing and agree with the
+        CPU's on the same tokens within 1e-2."""
+        dev = _cuda()
+        from repro_torch import kernels
+        from repro_torch.configs import get_smoke_config
+        from repro_torch.launch import serve_lm
+        from repro_torch.models.lm import LMModel
+
+        def to(tree, where):
+            if isinstance(tree, dict):
+                return {k: to(v, where) for k, v in tree.items()}
+            return tree.to(where)
+
+        cfg = get_smoke_config(arch)
+        cpu_model, model = LMModel(cfg, "cpu"), LMModel(cfg, dev)
+        params = cpu_model.init_params(torch.Generator().manual_seed(0))
+        rng = np.random.default_rng(3)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 20)))
+        prefix = serve_lm.prefix_embed_for(cfg, 2,
+                                           torch.Generator().manual_seed(9))
+        kw = {} if prefix is None else {"prefix_embed": prefix}
+        start = serve_lm.decode_start(cfg, 16)
+        _, want, cpu_cache = serve_lm.prefill(cpu_model, params, toks[:, :16],
+                                              start + 4, **kw)
+        kernels.reset_launch_counts()
+        _, got, cache = serve_lm.prefill(model, to(params, dev),
+                                         toks[:, :16].to(dev), start + 4,
+                                         **to(kw, dev))
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        assert counts.pop("flash_attention_padded") == cfg.n_layers
+        assert not any(counts.values()), counts
+        torch.testing.assert_close(got.cpu(), want, atol=1e-2, rtol=1e-2)
+        kernels.reset_launch_counts()
+        for t in range(16, 20):
+            want, cpu_cache = cpu_model.decode_step(
+                params, toks[:, t:t + 1], cpu_cache, start + t - 16)
+            got, cache = model.decode_step(
+                to(params, dev), toks[:, t:t + 1].to(dev), cache,
+                start + t - 16)
+            torch.testing.assert_close(got.cpu(), want, atol=1e-2, rtol=1e-2)
+        assert not any(kernels.launch_counts().values())
+
+    @pytest.mark.parametrize("n_experts,top_k,fission,cf", [
+        (384, 8, 1, 1.25), (8, 2, 2, 0.5), (8, 2, 1, 16.0)])
+    def test_moe_routing_on_card_equals_cpu(self, n_experts, top_k, fission,
+                                            cf):
+        """The same f32 router logits routed on the card and on the CPU:
+        expert ids, ranks and keep masks equal."""
+        dev = _cuda()
+        from repro_torch.models.lm import moe
+
+        table = {"n_experts": n_experts, "top_k": top_k, "fission": fission,
+                 "capacity_factor": cf}
+        gates = torch.from_numpy(_normal(7, (64, n_experts)) * 3)
+        want = moe.route(gates, table)
+        got = moe.route(gates.to(dev), table)
+        assert (got.cap, got.n_experts) == (want.cap, want.n_experts)
+        for name in ("topi", "pos", "keep"):
+            assert torch.equal(getattr(got, name).cpu(),
+                               getattr(want, name)), name
+        torch.testing.assert_close(got.topv.cpu(), want.topv, atol=1e-6,
+                                   rtol=1e-5)
+
+    def test_expert_bmm_bf16_f32_result(self):
+        """bf16 expert products on the card (cuBLAS with an f32 result)
+        against the widened f32 product (TF32 off) within 1e-3."""
+        dev = _cuda()
+        from repro_torch.core import resolve_device
+        from repro_torch.models.lm import moe
+
+        resolve_device(dev)
+        a = torch.from_numpy(_normal(8, (8, 40, 256))).to(dev).bfloat16()
+        w = torch.from_numpy(_normal(9, (8, 256, 96)) / 16).to(dev) \
+            .bfloat16()
+        got = moe._expert_matmul(a, w, torch.bfloat16)
+        assert got.dtype == torch.float32
+        torch.testing.assert_close(got, torch.bmm(a.float(), w.float()),
+                                   atol=1e-3, rtol=1e-3)

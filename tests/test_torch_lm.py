@@ -1,7 +1,11 @@
 """The LM serving stack of repro_torch against the JAX reference on the
-CPU: configs, parameter trees, each datapath module, LMModel forward and
-prefill + decode for the dense, ssm and hybrid smoke configs, and the
-greedy tokens of the serving example.
+CPU: configs and ``input_specs``, parameter trees, each datapath module
+(cross-attention included; the routed experts are in test_torch_moe.py),
+LMModel forward and prefill + decode for the dense, ssm, hybrid, moe,
+audio and vlm smoke configs, and the greedy tokens of the serving
+example.  A frontend arch's ``prefix_embed`` comes from numpy at 0.1
+scale, as the reference's tests draw theirs; ``vlm`` decodes at
+``cache_len = frontend_len + t``.
 
 Weights are the reference's (``PRNGKey(0)``) carried across leaf for leaf
 by ``params_from_numpy``; inputs come from numpy.  Tolerances: modules in
@@ -36,7 +40,19 @@ from repro_torch.models.lm import ssm
 
 torch.set_num_threads(2)
 
-SERVE_ARCHS = ["tinyllama-1.1b", "mamba2-370m", "zamba2-2.7b"]
+SERVE_ARCHS = ["tinyllama-1.1b", "mamba2-370m", "zamba2-2.7b",
+               "grok-1-314b", "kimi-k2-1t-a32b", "whisper-tiny",
+               "internvl2-76b"]
+FAMILY_ARCHS = ["grok-1-314b", "whisper-tiny", "internvl2-76b"]
+# Whisper's logits against the reference: 1e-3.  Its encoder output (the
+# decoder's cross-attention memory) reaches |33| on the smoke weights, and
+# the decoder's sharp cross-attention carries a relative move of it some
+# hundredfold to the logits, in the reference as in the port: two f32
+# encoders that sum in another order end a few 1e-4 apart.  The parts are
+# held tighter in test_whisper_decoder_on_reference_memory: the memory
+# within 4e-6 of its largest value, the decoder fed the reference's memory
+# at 1e-4.
+MODEL_TOL = {"whisper-tiny": 1e-3}
 KERNEL_CTX = {"use_flash": True, "use_kernel": True}
 
 
@@ -93,6 +109,20 @@ def test_configs_equal_reference(arch):
         jconfigs.get_config(arch), jconfigs.SHAPES["long_500k"])
 
 
+@pytest.mark.parametrize("shape", list(configs.SHAPES))
+@pytest.mark.parametrize("arch", configs.ARCH_IDS)
+def test_input_specs_equal_reference(arch, shape):
+    mine = configs.input_specs(configs.get_config(arch),
+                               configs.SHAPES[shape], batch=3)
+    ref = jconfigs.input_specs(jconfigs.get_config(arch),
+                               jconfigs.SHAPES[shape], batch=3)
+    assert sorted(mine) == sorted(ref)
+    for k, spec in ref.items():
+        assert mine[k].device.type == "meta"
+        assert tuple(mine[k].shape) == tuple(spec.shape), k
+        assert mine[k].dtype == params_lib.as_dtype(spec.dtype.name), k
+
+
 def test_zamba2_param_count():
     assert configs.get_config("zamba2-2.7b").param_count() == 2_422_670_240
 
@@ -104,7 +134,24 @@ def _bf16_smoke(arch):
 
 
 def test_params_from_numpy_bf16_bit_for_bit():
-    jm = JLMModel(_bf16_smoke("zamba2-2.7b"))
+    _check_carried_bit_for_bit("zamba2-2.7b")
+
+
+@pytest.mark.parametrize("arch,leaves", [
+    ("grok-1-314b", ("router", "wg", "wu", "wd")),
+    ("kimi-k2-1t-a32b", ("router", "wg", "wu", "wd")),
+    ("whisper-tiny", ("enc_layers", "xattn", "xattn_norm")),
+    ("internvl2-76b", ("attn", "mlp"))])
+def test_params_from_numpy_new_trees_bit_for_bit(arch, leaves):
+    """The experts' 3-D weights and router, the encoder stack and the
+    cross-attention weights cross leaf for leaf, bf16 bit for bit."""
+    paths = _check_carried_bit_for_bit(arch)
+    for name in leaves:
+        assert any(name in path for path in paths), name
+
+
+def _check_carried_bit_for_bit(arch):
+    jm = JLMModel(_bf16_smoke(arch))
     ref = jax.jit(jm.init_params)(jax.random.PRNGKey(3))
     mine = _port_params(ref)
     leaves = jax.tree_util.tree_leaves_with_path(ref)
@@ -120,6 +167,10 @@ def test_params_from_numpy_bf16_bit_for_bit():
                                   a.view(np.int16))
         else:
             assert np.array_equal(t.numpy(), a)
+    mine_paths = [p for p, _ in params_lib.leaves_with_path(mine)]
+    assert sorted(mine_paths) == sorted(
+        tuple(k.key for k in p) for p, _ in leaves)
+    return mine_paths
 
 
 def test_quantize_weights_match_reference():
@@ -220,6 +271,29 @@ def test_attention_prefill_then_decode(kv_cache):
         got = L.attention(p, torch.from_numpy(x[:, t:t + 1]), table=table,
                           ctx=ctx)
         _close(got, want, 1e-4)
+
+
+@pytest.mark.parametrize("mode", ["full", "decode"])
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
+def test_cross_attention(dtype, tol, mode):
+    """Whisper's decoder cross-attention over the encoder memory (B, S,
+    D): no RoPE, not causal, as at prefill and at a decode step."""
+    cfg = dataclasses.replace(jconfigs.get_smoke_config("whisper-tiny"),
+                              param_dtype=dtype, compute_dtype=dtype)
+    stream = JLMModel(cfg).block
+    table = stream.tables[0]
+    jp = _materialize(stream.metas["xattn"], 4)
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((2, 1 if mode == "decode" else 7,
+                             cfg.d_model)).astype(np.float32)
+    mem = rng.standard_normal((2, cfg.frontend_len, cfg.d_model)) \
+        .astype(np.float32)
+    want, _ = _jcall(jL.cross_attention, table, mode=mode)(
+        jp, _jx(x, dtype), {"memory": _jx(mem, dtype)})
+    got = L.cross_attention(_port_params(jp), _tx(x, dtype), table=table,
+                            ctx={"memory": _tx(mem, dtype), "mode": mode})
+    assert got.dtype == params_lib.as_dtype(dtype)
+    _close(got, want, tol)
 
 
 @pytest.mark.parametrize("bfp", [False, True])
@@ -336,12 +410,44 @@ def _tokens(cfg, shape, seed=1):
         .astype(np.int32)
 
 
+def _prefix(cfg, batch, seed=9):
+    """The frontend stub's frames for both packages (numpy, 0.1 scale):
+    ({"prefix_embed": jax array}, {"prefix_embed": tensor}), or two empty
+    dicts for an arch without a frontend."""
+    if cfg.frontend == "none":
+        return {}, {}
+    pf = np.random.default_rng(seed).standard_normal(
+        (batch, cfg.frontend_len, cfg.d_model)).astype(np.float32) * 0.1
+    return {"prefix_embed": jnp.asarray(pf)}, \
+        {"prefix_embed": torch.from_numpy(pf)}
+
+
 @pytest.mark.parametrize("arch", SERVE_ARCHS)
 def test_forward_matches_reference(arch):
     jm, ref, model, p = _models(arch)
     toks = _tokens(model.cfg, (2, 16))
-    _close(model.forward(p, torch.from_numpy(toks)),
-           jax.jit(jm.forward)(ref, jnp.asarray(toks)), 1e-4)
+    jkw, kw = _prefix(model.cfg, 2)
+    got = model.forward(p, torch.from_numpy(toks), **kw)
+    assert tuple(got.shape) == (2, 16, model.cfg.vocab)
+    _close(got, jax.jit(jm.forward)(ref, jnp.asarray(toks), **jkw),
+           MODEL_TOL.get(arch, 1e-4))
+
+
+def test_whisper_decoder_on_reference_memory(monkeypatch):
+    """The encoder's output within 4e-6 of its largest value, and the
+    decoder, fed the reference's encoder output, at the model tolerance."""
+    jm, ref, model, p = _models("whisper-tiny")
+    toks = _tokens(model.cfg, (2, 16))
+    jkw, kw = _prefix(model.cfg, 2)
+    jlogits, jcache = jax.jit(functools.partial(
+        jm.forward, cache_out=True, max_len=16))(ref, jnp.asarray(toks), **jkw)
+    _, cache = model.forward(p, torch.from_numpy(toks), cache_out=True,
+                             max_len=16, **kw)
+    jmem = np.array(jcache["memory"])
+    _close(cache["memory"], jmem, 4e-6 * float(np.abs(jmem).max()))
+    monkeypatch.setattr(model, "_encode",
+                        lambda params, pe: torch.from_numpy(jmem))
+    _close(model.forward(p, torch.from_numpy(toks), **kw), jlogits, 1e-4)
 
 
 @pytest.mark.parametrize("arch", SERVE_ARCHS)
@@ -350,35 +456,42 @@ def test_prefill_and_decode_match_reference(arch):
     Pallas in interpret mode), then 4 decode steps."""
     jm, ref, model, p = _models(arch)
     toks = _tokens(model.cfg, (2, 12), seed=2)
+    jkw, kw = _prefix(model.cfg, 2)
+    start = serve_lm.decode_start(model.cfg, 8)     # vlm: after the prefix
+    max_len = start + 4
     jlogits, jcache = jax.jit(functools.partial(
-        jm.forward, cache_out=True, max_len=12, ctx_extra=dict(KERNEL_CTX)))(
-        ref, jnp.asarray(toks[:, :8]))
+        jm.forward, cache_out=True, max_len=max_len,
+        ctx_extra=dict(KERNEL_CTX)))(ref, jnp.asarray(toks[:, :8]), **jkw)
     kernels.reset_launch_counts()
     _, logits, cache = serve_lm.prefill(model, p, torch.from_numpy(toks[:, :8]),
-                                        12)
-    _close(logits, jlogits, 2e-4)
+                                        max_len, **kw)
+    tol = MODEL_TOL.get(arch, 2e-4)
+    _close(logits, jlogits, tol)
     assert sum(kernels.launch_counts().values()) == 0   # plain on the CPU
     jstep = jax.jit(jm.decode_step)
     for t in range(8, 12):
+        pos = start + t - 8
         jl, jcache = jstep(ref, jnp.asarray(toks[:, t:t + 1]), jcache,
-                           jnp.int32(t))
+                           jnp.int32(pos))
         lg, cache = model.decode_step(p, torch.from_numpy(toks[:, t:t + 1]),
-                                      cache, t)
-        _close(lg, jl, 2e-4)
+                                      cache, pos)
+        _close(lg, jl, tol)
 
 
-def test_serve_lm_greedy_tokens_equal_reference():
+def _greedy_tokens_equal_reference(arch):
     """The reference example's prefill + greedy decode (examples/serve_lm.py)
     on the same weights and prompts gives the same 10 tokens."""
-    arch = "zamba2-2.7b"
     jm, ref, model, p = _models(arch)
     prompts = _tokens(model.cfg, (3, 8), seed=5)
-    n_tokens, max_len = 10, 18
+    jkw, kw = _prefix(model.cfg, 3)
+    n_tokens = 10
+    start = serve_lm.decode_start(model.cfg, 8)
+    max_len = start + n_tokens
 
     @jax.jit
-    def jprefill(params, toks):
+    def jprefill(params, toks, jkw):
         logits, cache = jm.forward(params, toks, cache_out=True,
-                                   max_len=max_len)
+                                   max_len=max_len, **jkw)
         return jnp.argmax(logits[:, -1, :], -1).astype(jnp.int32), cache
 
     @jax.jit
@@ -386,18 +499,28 @@ def test_serve_lm_greedy_tokens_equal_reference():
         logits, cache = jm.decode_step(params, tok[:, None], cache, pos)
         return jnp.argmax(logits[:, -1, :], -1).astype(jnp.int32), cache
 
-    tok, jcache = jprefill(ref, jnp.asarray(prompts))
+    tok, jcache = jprefill(ref, jnp.asarray(prompts), jkw)
     want = [tok]
-    for pos in range(8, 8 + n_tokens - 1):
+    for pos in range(start, start + n_tokens - 1):
         tok, jcache = jstep(ref, tok, jcache, pos)
         want.append(tok)
     want = np.stack([np.asarray(t) for t in want], 1)
 
     tok, _, cache = serve_lm.prefill(model, p, torch.from_numpy(prompts),
-                                     max_len)
-    rest, _, _ = serve_lm.decode(model, p, tok, cache, 8, n_tokens - 1)
+                                     max_len, **kw)
+    rest, _, _ = serve_lm.decode(model, p, tok, cache, start, n_tokens - 1)
     got = torch.cat([tok[:, None], rest], 1).numpy()
     assert np.array_equal(got, want)
+
+
+def test_serve_lm_greedy_tokens_equal_reference():
+    _greedy_tokens_equal_reference("zamba2-2.7b")
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_serve_lm_greedy_tokens_equal_reference_by_family(arch):
+    """One arch of each family this slice added: moe, audio, vlm."""
+    _greedy_tokens_equal_reference(arch)
 
 
 def test_serve_lm_main_on_cpu(capsys):
@@ -407,13 +530,49 @@ def test_serve_lm_main_on_cpu(capsys):
     assert "serve_lm OK" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("arch", ["grok-1-314b", "whisper-tiny",
-                                  "internvl2-76b"])
-def test_unported_families_raise(arch):
-    model = LMModel(configs.get_smoke_config(arch), "cpu")
+@pytest.mark.parametrize("arch", ["whisper-tiny", "internvl2-76b"])
+def test_serve_lm_main_frontend_arch_on_cpu(capsys, arch):
+    gen = serve_lm.main(["--device", "cpu", "--arch", arch, "--batch", "2",
+                         "--tokens", "4"])
+    assert tuple(gen.shape) == (2, 4)
+    assert "serve_lm OK" in capsys.readouterr().out
+
+
+def test_decode_start_and_prefix_spec():
+    vlm = configs.get_smoke_config("internvl2-76b")
+    audio = configs.get_smoke_config("whisper-tiny")
+    assert serve_lm.decode_start(vlm, 5) == vlm.frontend_len + 5
+    assert serve_lm.decode_start(audio, 5) == 5
+    assert serve_lm.prefix_embed_for(configs.get_smoke_config(
+        "tinyllama-1.1b"), 2, torch.Generator()) is None
+    pf = serve_lm.prefix_embed_for(audio, 3, torch.Generator().manual_seed(0))
+    assert tuple(pf.shape) == (3, audio.frontend_len, audio.d_model)
+    assert pf.dtype == torch.float32 and float(pf.abs().max()) < 1.0
+
+
+def test_audio_forward_needs_prefix_embed():
+    model = LMModel(configs.get_smoke_config("whisper-tiny"), "cpu")
     params = model.init_params(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="prefix_embed"):
         model.forward(params, torch.zeros((1, 4), dtype=torch.int64))
+
+
+@pytest.mark.parametrize("arch", ["grok-1-314b", "kimi-k2-1t-a32b",
+                                  "whisper-tiny", "internvl2-76b"])
+def test_cache_meta_equals_reference(arch):
+    """init_cache's leaves (the encoder memory included) have the
+    reference's shapes and types."""
+    jm, _, model, _ = _models(arch)
+    want = jax.eval_shape(lambda: jm.init_cache(2, 10))
+    got = model.init_cache(2, 10)
+    paths = jax.tree_util.tree_leaves_with_path(want)
+    assert len(paths) == len(list(params_lib.leaves_with_path(got)))
+    for path, leaf in paths:
+        t = got
+        for k in path:
+            t = t[k.key]
+        assert tuple(t.shape) == tuple(leaf.shape), path
+        assert t.dtype == params_lib.as_dtype(leaf.dtype.name), path
 
 
 def test_cross_entropy():

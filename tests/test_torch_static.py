@@ -33,6 +33,7 @@ def test_port_has_its_modules():
                  "src/repro_torch/models/lm/params.py",
                  "src/repro_torch/models/lm/layers.py",
                  "src/repro_torch/models/lm/ssm.py",
+                 "src/repro_torch/models/lm/moe.py",
                  "src/repro_torch/models/lm/transformer.py",
                  "src/repro_torch/launch/serve.py",
                  "src/repro_torch/launch/serve_lm.py",
