@@ -151,12 +151,14 @@ non-zero before the result line is printed.
 5b. Parity of the moe, audio and vlm families on the card
    (``phase_lm_family_parity``): ``whisper-tiny`` (full) and
    ``internvl2-76b`` (4 layers, CPU runs of about 20 s) at full width in
-   f32, batch 1, the attention projections rescaled to their true fan-in
-   (``_fan_in_scaled``): the whole prefill against the port's CPU run of
-   the same call (max abs 1e-2), every layer of it against the CPU run of
-   that layer on the card's input to it (2e-3 of the output's largest
-   value), the head (1e-2), and 8 decode steps against the one-shot
-   forward (max abs 5e-3; vlm at cache_len = frontend_len + t).  MoE at
+   f32, batch 1 (``init_params`` takes the attention projections at
+   their true fan-in, ``params.scale_attention_to_fan_in``; phase 4
+   and phase 7 draw so too): the whole prefill against the
+   port's CPU run of the same call (max abs 1e-2), every layer of it
+   against the CPU run of that layer on the card's input to it (2e-3 of
+   the output's largest value), the head (1e-2), and 8 decode steps
+   against the one-shot forward (max abs 5e-3; vlm at cache_len =
+   frontend_len + t).  MoE at
    full width, card only (a MoE decode step routes other tokens together
    than the one-shot forward, so the two differ by capacity, in the
    reference too): kimi's router on 64 tokens (its f32 gates routed on
@@ -193,6 +195,37 @@ non-zero before the result line is printed.
    phase 2's VGG-16 gate of the reference-mode forward of the same
    params.
 
+7. LM training on the card (the reference trains without its Pallas
+   kernels, and K4 and K5 have no backward).
+   7a: K4 and K5 raise "no backward" under autograd, through their
+   wrappers and through a ``use_flash`` / ``use_kernel`` train-mode
+   forward; under ``no_grad`` the same calls launch (counters move).
+   7b: one ``launch/step_fns.build_train_step`` on a one-slot mesh,
+   card against CPU from one seeded state: TinyLlama-1.1B at published
+   widths with 2 layers and Zamba2-2.7B with 6 (one shared-attention
+   site) in f32, batch 2 x 128, remat on: loss within 1e-5 relative,
+   each gradient leaf within 1e-3 of its largest |g|, the AdamW update
+   within 2·lr of the CPU's and within lr/2 of it on 99.9% of the
+   entries the CPU moved by over 3/4·lr (at least half of all); then
+   TinyLlama in bf16 (the card's ``low_precision_matmul`` backward
+   rounds each f32 cotangent to bf16): loss within 2^-8 relative, each
+   gradient leaf within 2^-5 of its largest |g|.
+   7c: TinyLlama-1.1B as published (22 layers, bf16, remat on), batch 4
+   x 512 from ``TokenDataset`` through ``Prefetcher(device="cuda")``, 12
+   steps of ``launch/train.make_step`` (AdamW, f32 moments): loss and
+   gradient norm finite at every step, no kernel launched; median step
+   ms, tokens/s, peak memory and the share of the bf16 bound (8·N per
+   token with remat's extra forward, at 989 TFLOP/s); then 2 steps with
+   remat off from the same state: peak memory against remat on (the
+   step's, and the forward and backward's alone), losses within 1e-2
+   relative (bit-equality printed); then one step from the same draw
+   without ``init_params``' fan-in rescale (the reference's init): its
+   gradient norm against the first step's.
+   7d: ``launch/train.py --smoke --fail-at 5`` then a resume, on the
+   card: the final checkpoint's bytes equal an uninterrupted run's.
+   7e: ``launch/train_lm_100m.main(["--steps", "200", "--crash-at",
+   "120"])`` on the card prints ``train_lm_100m OK``.
+
 The last lines are a ``{"kernels": [...]}`` JSON line (``launches``: the
 VGG-16 PixelLink forward's and the Zamba2 prefill's counts;
 ``launches_by_path``: ResNet-50's forward, one EAST and DB serving
@@ -206,8 +239,9 @@ calls of K1 (conv1_2, conv5_1, ResNet-50's s4b2_c2), K2 (merge1_c1,
 head_logits, ResNet-50's s4b*_c1), K4 (every shape), K5 and their
 library calls in phase 1, over one engine step of each configuration in
 phase 2, over one serving step (device box tail and copy to the host
-included) at batch 1 and 4 in phase 3 and over one prefill and one
-decode step of each model of phase 4, and prints the
+included) at batch 1 and 4 in phase 3, over one prefill and one
+decode step of each model of phase 4 and over one training step of
+phase 7c, and prints the
 device time by kernel and the device's busy share of each.
 """
 import contextlib
@@ -1819,34 +1853,16 @@ def phase_lm_parity(torch):
 # phase 5b: parity of the new families on the card
 # ---------------------------------------------------------------------------
 
-def _fan_in_scaled(params) -> None:
-    """Rescales the attention projections in place to the fan-in of the
-    axes they contract.  The seeded ``scaled`` init (the reference's) takes
-    shape[-2] as the fan-in: n_heads for wq, wk, wv (d, n, hd) and head_dim
-    for wo (n, hd, d).  So q and k come out with elements of std about
-    sqrt(hd) and scores of std about hd, every softmax is near one-hot,
-    and a relative move of a layer's input comes out many-fold larger:
-    two f32 runs of Whisper's prefill then end O(1) apart.  At fan-ins d
-    and n*hd the scores have std about 1."""
-    for key, leaf in params.items():
-        if isinstance(leaf, dict):
-            _fan_in_scaled(leaf)
-        elif key in ("wq", "wk", "wv"):
-            leaf.mul_((leaf.shape[-2] / leaf.shape[-3]) ** 0.5)
-        elif key == "wo":
-            leaf.mul_(leaf.shape[-3] ** -0.5)
-
-
 def family_parity(torch, arch: str, layers, prompt_len: int) -> None:
-    """f32 at full width, batch 1, the attention projections rescaled by
-    ``_fan_in_scaled``.  The card's whole prefill (K4 at the decoder's
-    self-attention) against the port's CPU run of the same call (1e-2);
-    every layer of it against the CPU run of that layer on the card's
-    input to it (2e-3 of the layer output's largest value: a wrong mask,
-    scale or rotation moves it by tenths) and the head on the card's last
-    hidden state (1e-2), which say where a whole-prefill gap comes from;
-    8 decode steps against the one-shot forward over the same tokens
-    (5e-3)."""
+    """f32 at full width, batch 1, from ``init_params`` (the attention
+    projections at their true fan-in).  The card's whole prefill (K4 at the
+    decoder's self-attention) against the port's CPU run of the same call
+    (1e-2); every layer of it against the CPU run of that layer on the
+    card's input to it (2e-3 of the layer output's largest value: a wrong
+    mask, scale or rotation moves it by tenths) and the head on the card's
+    last hidden state (1e-2), which say where a whole-prefill gap comes
+    from; 8 decode steps against the one-shot forward over the same
+    tokens (5e-3)."""
     from repro_torch.launch import serve_lm
     from repro_torch.models.lm import LMModel
 
@@ -1854,7 +1870,6 @@ def family_parity(torch, arch: str, layers, prompt_len: int) -> None:
                               param_dtype="float32", compute_dtype="float32")
     model = LMModel(cfg, "cuda")
     params = model.init_params(torch.Generator(device="cuda").manual_seed(2))
-    _fan_in_scaled(params)
     prompt = torch.randint(
         0, cfg.vocab, (1, prompt_len), device="cuda",
         generator=torch.Generator(device="cuda").manual_seed(3))
@@ -2293,6 +2308,337 @@ def phase_deploy(torch, np, params) -> dict:
     return {"deploy check, one forward and CC tail": launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 7: LM training on the card
+# ---------------------------------------------------------------------------
+
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 4, 512, 12
+
+
+def phase_lm_refusal(torch, np) -> None:
+    """7a: K4 and K5 under autograd on the card raise "no backward",
+    through their wrappers and a kernel-route train-mode forward; under
+    no_grad the same calls launch."""
+    from repro_torch import configs
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.kernels.flash_attention import flash_attention_padded
+    from repro_torch.kernels.ssd_scan import ssd_chunk
+    from repro_torch.models.lm import LMModel
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def rand(*shape):
+        return torch.randn(shape, device="cuda", generator=gen)
+
+    q, k, v = (rand(2, 8, 128, 64).requires_grad_(True) for _ in range(3))
+    c, b = (rand(4, 1, 64, 32).requires_grad_(True) for _ in range(2))
+    xdt = rand(4, 1, 4, 64, 16)
+    scum = -torch.cumsum(rand(4, 1, 4, 64, 1).abs(), dim=3)
+    calls = {"flash_attention_padded": lambda: flash_attention_padded(
+                 q, k, v, sm_scale=0.125, causal=True, kv_len=128),
+             "ssd_chunk": lambda: ssd_chunk(c, b, xdt, scum)}
+    for name, arch in (("flash_attention_padded", "tinyllama-1.1b"),
+                       ("ssd_chunk", "mamba2-370m")):
+        wrapper = {"flash_attention_padded": flash_attention_padded,
+                   "ssd_chunk": ssd_chunk}[name]
+        model = LMModel(configs.get_smoke_config(arch), "cuda")
+        live = tree_lib.tree_map(lambda t: t.requires_grad_(True),
+                                 model.init_params(gen))
+        toks = torch.randint(0, model.cfg.vocab, (2, 64), device="cuda",
+                             generator=gen)
+        ctx = {"use_flash": True, "use_kernel": True}
+        for what, call in (("wrapper", calls[name]),
+                           ("forward", lambda: model.forward(
+                               live, toks, ctx_extra=ctx))):
+            try:
+                call()
+                fail(f"7a: {name} {what} under autograd did not raise")
+            except RuntimeError as e:
+                if "no backward" not in str(e):
+                    raise
+            before = wrapper.launches
+            with torch.no_grad():
+                out = call()
+            torch.cuda.synchronize()
+            if wrapper.launches <= before:
+                fail(f"7a: {name} {what} under no_grad did not launch")
+            _finite(torch, f"7a {name} {what}",
+                    out[0] if isinstance(out, tuple) else out)
+    log("7a K4 and K5 under autograd on the card: wrappers and kernel-route "
+        "forwards raise 'no backward'; under no_grad they launch")
+
+
+LR1 = 3e-4 / 2000       # build_train_step's first-step learning rate
+# bf16 card against CPU: the card's backward rounds each f32 cotangent to
+# bf16 (2^-9 relative) and a bf16 activation can round to a neighbour
+# (2^-8); a few such units bound the loss and each gradient leaf
+BF16_LOSS_REL, BF16_GRAD_SHARE = 2.0 ** -8, 2.0 ** -5
+
+
+def update_agreement(before, after, want_after, lr: float):
+    """The AdamW update itself, ``after - before``, against the other
+    side's ``want_after - before``: (the largest difference, the share of
+    the entries the other side moved by over 3/4·lr that moved within
+    lr/2 of it, the share of entries it moved so).  A first step moves a
+    parameter by about lr·sign(g), so a step that leaves the parameters
+    unchanged agrees on none of them."""
+    worst, n_moved, n_close, n = 0.0, 0, 0, 0
+    for b, a, w in zip(before, after, want_after):
+        b = b.double().cpu()
+        d, wd = a.double().cpu() - b, w.double().cpu() - b
+        err = (d - wd).abs()
+        worst = max(worst, float(err.max()))
+        moved = wd.abs() > 0.75 * lr
+        n += b.numel()
+        n_moved += int(moved.sum())
+        n_close += int((err[moved] <= 0.5 * lr).sum())
+    return worst, n_close / max(n_moved, 1), n_moved / n
+
+
+def _train_parity(torch, arch: str, layers: int, dtype: str) -> str:
+    """One build_train_step on a one-slot mesh, card against CPU, from
+    one seeded state."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.launch import step_fns
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.lm import LMModel
+    from repro_torch.optim import adamw, cosine_with_warmup
+    from repro_torch.runtime import sharding
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers,
+                              param_dtype=dtype, compute_dtype=dtype)
+    params = LMModel(cfg, "cpu").init_params(
+        torch.Generator().manual_seed(11))
+    gen = torch.Generator().manual_seed(12)
+    toks = torch.randint(0, cfg.vocab, (2, 128), generator=gen)
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, dims=1)}
+    batch["labels"][:, -1] = -1
+    shape = ShapeConfig("t", 128, 2, "train")
+    opt_init = adamw(cosine_with_warmup(3e-4, 2000, 100_000))[0]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        mesh = make_host_mesh((1, 1), ("data", "model"), device=dev)
+        built = step_fns.build_train_step(cfg, mesh, shape,
+                                          moment_dtype="float32")
+        p = tree_lib.tree_map(lambda t: t.to(dev), params)
+        t0 = time.perf_counter()
+        loss, grads = built.meta["value_and_grad"](p, batch)
+        new, _, m = built.fn(p, opt_init(p), batch)
+        param_sh = built.arg_shardings[0]
+        out[dev] = (float(loss), float(m["loss"]),
+                    sharding.gather_tree(grads, param_sh, "cpu"),
+                    sharding.gather_tree(new, param_sh, "cpu"),
+                    time.perf_counter() - t0)
+        del built, p, grads, new
+        _free(torch)
+    (l_card, ls_card, g_card, p_card, t_card), \
+        (l_cpu, ls_cpu, g_cpu, p_cpu, t_cpu) = out["cuda"], out["cpu"]
+    f32 = dtype == "float32"
+    loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+    worst, worst_at = 0.0, ""
+    for (path, a), b in zip(tree_lib.flatten_with_paths(g_card),
+                            tree_lib.leaves(g_cpu)):
+        a, b = a.float(), b.float()
+        share = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        if share > worst:
+            worst, worst_at = share, path
+    moved, agree, moved_share = update_agreement(
+        tree_lib.leaves(params), tree_lib.leaves(p_card),
+        tree_lib.leaves(p_cpu), LR1)
+    loss_tol, grad_tol = (1e-5, 1e-3) if f32 else (BF16_LOSS_REL,
+                                                   BF16_GRAD_SHARE)
+    msg = (f"7b {arch} ({layers} layers, {dtype}, remat {cfg.remat}, batch "
+           f"2 x 128): loss card {l_card:.7f} CPU {l_cpu:.7f} (rel "
+           f"{loss_rel:.2e}, gate {loss_tol:.2e}); gradients worst "
+           f"{worst:.2e} of the leaf's largest |g| at {worst_at} (gate "
+           f"{grad_tol:.2e}); AdamW update card - CPU max {moved:.3g} "
+           f"(2·lr {2 * LR1:.3g}), {agree:.4%} of the {moved_share:.2%} of "
+           f"entries the CPU moved by over 3/4·lr within lr/2; card "
+           f"{t_card:.1f} s, CPU {t_cpu:.1f} s")
+    if loss_rel > loss_tol or worst > grad_tol:
+        fail(msg)
+    # a bf16 leaf does not show a first step of lr = 1.5e-7 (its spacing
+    # is about 2^-8 of its value): the update is gated in f32
+    if f32 and (moved > 2 * LR1 or agree < 0.999 or moved_share < 0.5):
+        fail(msg)
+    return msg
+
+
+def phase_lm_train_parity(torch) -> None:
+    """7b: TinyLlama-1.1B (2 layers) and Zamba2-2.7B (6 layers, one
+    shared-attention site) at published widths in f32, and TinyLlama in
+    bf16 (the card's ``low_precision_matmul`` backward)."""
+    for arch, layers, dtype in (("tinyllama-1.1b", 2, "float32"),
+                                ("zamba2-2.7b", 6, "float32"),
+                                ("tinyllama-1.1b", 2, "bfloat16")):
+        log(_train_parity(torch, arch, layers, dtype))
+
+
+def phase_lm_training(torch, np, profile=False) -> dict:
+    """7c: TinyLlama-1.1B as published (22 layers, bf16, remat) trained
+    12 steps at batch 4 x 512 through launch/train.make_step; then 2 steps
+    with remat off from the same state.  Returns the launches."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.data import Prefetcher, TokenDataset
+    from repro_torch.launch import train
+    from repro_torch.models.lm import LMModel, count_params
+    from repro_torch.models.lm.params import materialize
+    from repro_torch.optim import adamw, cosine_with_warmup, value_and_grad
+
+    cfg = get_config("tinyllama-1.1b")
+    n_params = count_params(cfg)
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    ds = TokenDataset(cfg.vocab, LM_TRAIN_SEQ, LM_TRAIN_BATCH, seed=0)
+    opt_init, opt_update = adamw(
+        cosine_with_warmup(1e-3, 20, max(LM_TRAIN_STEPS, 21)),
+        weight_decay=0.01)
+    model = LMModel(cfg, "cuda")
+    params0 = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    state0 = (params0, opt_init(params0), torch.zeros((), device="cuda"))
+
+    def run(model, n_steps):
+        step = train.make_step(model, opt_update)
+        state, losses, norms, walls = state0, [], [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        feed = Prefetcher((ds.batch(i) for i in range(n_steps)),
+                          device="cuda")
+        for batch in feed:
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))    # waits for the step
+            norms.append(float(m["grad_norm"]))
+            walls.append(time.perf_counter() - t0)
+        return losses, norms, walls, torch.cuda.max_memory_allocated()
+
+    _free(torch)
+    kernels.reset_launch_counts()
+    losses, norms, walls, peak = run(model, LM_TRAIN_STEPS)
+    launches = kernels.launch_counts()
+    if any(launches.values()):
+        fail(f"7c: LM training launched kernels {launches}")
+    if not (np.isfinite(losses).all() and np.isfinite(norms).all()):
+        fail(f"7c: non-finite losses {losses} or norms {norms}")
+    step_s = statistics.median(walls[2:])
+    flops = 8 * n_params * tokens             # 6·N·T and remat's forward
+    log(f"7c TinyLlama-1.1B training ({n_params / 1e9:.3f} B params, 22 "
+        f"layers, bf16, remat on, AdamW f32 moments), batch "
+        f"{LM_TRAIN_BATCH} x {LM_TRAIN_SEQ}: losses {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}, grad norms {norms[0]:.3g} .. {norms[-1]:.3g}; "
+        f"step {step_s * 1e3:.2f} ms median of steps 3-{LM_TRAIN_STEPS} "
+        f"(host clock; first {walls[0] * 1e3:.0f} ms), "
+        f"{tokens / step_s:.0f} tokens/s, peak memory {peak / 2**30:.2f} "
+        f"GiB; bf16 bound {flops / 1e12:.2f} TFLOP / {BF16_PEAK / 1e12:.0f}"
+        f" TFLOP/s = {flops / BF16_PEAK * 1e3:.2f} ms, "
+        f"{flops / BF16_PEAK / step_s:.1%} of it; kernels launched: none")
+    if profile:
+        step = train.make_step(model, opt_update)
+        first = {k: torch.from_numpy(v).cuda()
+                 for k, v in ds.batch(0).items()}
+        step(state0, first)
+        profile_step(torch, step, state0, first,
+                     what="7c TinyLlama-1.1B training step")
+    plain = LMModel(dataclasses.replace(cfg, remat=False), "cuda")
+    losses_off, _, walls_off, peak_off = run(plain, 2)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses_off, losses))
+    if rel > 1e-2:
+        fail(f"7c: remat off losses {losses_off} vs on {losses[:2]}")
+    # the forward and backward alone: the update's copies of the state
+    # set the step's peak, whatever the activations
+    batch = {k: torch.from_numpy(v).cuda() for k, v in ds.batch(0).items()}
+    grad_peak = {}
+    for name, m in (("on", model), ("off", plain)):
+        _free(torch)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        value_and_grad(train.make_loss(m), params0, batch)
+        torch.cuda.synchronize()
+        grad_peak[name] = torch.cuda.max_memory_allocated() - base
+    log(f"7c remat off, 2 steps from the same state: step peak "
+        f"{peak_off / 2**30:.2f} GiB against {peak / 2**30:.2f} with remat;"
+        f" forward and backward above the state: "
+        f"{grad_peak['off'] / 2**30:.2f} GiB against "
+        f"{grad_peak['on'] / 2**30:.2f} with remat; losses {losses_off} "
+        f"against {losses[:2]} (max rel {rel:.2e}, "
+        f"{'bit-equal' if losses_off == losses[:2] else 'not bit-equal'});"
+        f" step {walls_off[-1] * 1e3:.2f} ms")
+    del state0, params0
+    _free(torch)
+    # the same draw without init_params' fan-in rescale (the reference's
+    # init): one step, for its gradient norm against norms[0]
+    drawn = materialize(model.param_meta(),
+                        torch.Generator(device="cuda").manual_seed(0),
+                        "cuda")
+    _, m = train.make_step(model, opt_update)(
+        (drawn, opt_init(drawn), torch.zeros((), device="cuda")), batch)
+    log(f"7c first step from the init as drawn (attention fan-in = heads): "
+        f"loss {float(m['loss']):.4f}, grad norm {float(m['grad_norm']):.4g}"
+        f" against {norms[0]:.4g} from init_params (fan-in rescaled)")
+    del drawn, m
+    _free(torch)
+    return {"lm training step (TinyLlama-1.1B)": launches}
+
+
+def _checkpoint_bytes(directory: str, step: int) -> dict:
+    d = os.path.join(directory, f"step_{step}")
+    out = {}
+    for f in sorted(os.listdir(d)):
+        if f.endswith(".bin"):
+            with open(os.path.join(d, f), "rb") as fh:
+                out[f] = fh.read()
+    return out
+
+
+def phase_lm_resume(torch) -> None:
+    """7d: launch/train.py --smoke on the card, crashed after step 5 with
+    checkpoints every 2 steps, then resumed: the final checkpoint equals
+    an uninterrupted run's byte for byte."""
+    import tempfile
+
+    from repro_torch.launch import train
+
+    flags = ["--smoke", "--steps", "10", "--ckpt-every", "2",
+             "--log-every", "100"]
+    with tempfile.TemporaryDirectory() as d:
+        train.main(flags + ["--ckpt-dir", os.path.join(d, "direct")])
+        try:
+            train.main(flags + ["--ckpt-dir", os.path.join(d, "crash"),
+                                "--fail-at", "5"])
+            fail("7d: the injected failure at step 5 did not fire")
+        except RuntimeError as e:
+            if "injected" not in str(e):
+                raise
+        logs = train.main(flags + ["--ckpt-dir", os.path.join(d, "crash")])
+        direct = _checkpoint_bytes(os.path.join(d, "direct"), 10)
+        resumed = _checkpoint_bytes(os.path.join(d, "crash"), 10)
+    if [int(m["step"]) for m in logs] != list(range(5, 11)):
+        fail(f"7d: resumed steps {[m['step'] for m in logs]}")
+    if not direct or direct != resumed:
+        diff = [k for k in direct if direct[k] != resumed.get(k)]
+        fail(f"7d: resumed final state differs from the uninterrupted run "
+             f"in {len(diff)} of {len(direct)} leaves: {diff[:4]}")
+    log(f"7d launch.train --smoke on the card: crash after step 5, resume "
+        f"at 4, final checkpoint ({len(direct)} leaves) bit-equal to 10 "
+        f"uninterrupted steps")
+
+
+def phase_lm_100m(torch) -> None:
+    """7e: the ~100M-parameter example with a crash at step 120."""
+    import tempfile
+
+    from repro_torch.launch import train_lm_100m
+
+    with tempfile.TemporaryDirectory() as d:
+        got = train_lm_100m.main(["--steps", "200", "--crash-at", "120",
+                                  "--ckpt-dir", os.path.join(d, "ckpt")])
+    log(f"7e train_lm_100m: loss {got['first']:.3f} -> {got['last']:.3f} "
+        f"over {got['steps']} logged steps ({got['status']})")
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "csrc").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout")
@@ -2363,11 +2709,17 @@ def main() -> None:
     timed("phase 6c, train_std", phase_train_example, torch)
     deploy = timed("phase 6d, deploy check", phase_deploy, torch, np,
                    trained)
+    timed("phase 7a, K4 and K5 refuse autograd", phase_lm_refusal, torch, np)
+    timed("phase 7b, LM training parity", phase_lm_train_parity, torch)
+    lm_train = timed("phase 7c, LM training", phase_lm_training, torch, np,
+                     profile=profile)
+    timed("phase 7d, LM resume", phase_lm_resume, torch)
+    timed("phase 7e, train_lm_100m", phase_lm_100m, torch)
     launches = {k: fcn[k] for k in FCN_KERNELS}
     lm = served_lm["zamba2-2.7b prefill"]
     launches.update({k: lm[k] for k in LM_KERNELS})
     by_path = {"pixellink_resnet50 forward": resnet, **zoo, **plans,
-               **fleet, **deploy, **served_lm}
+               **fleet, **deploy, **served_lm, **lm_train}
 
     meta = {
         "winograd_tiles": ("src/repro_torch/csrc/winograd_conv.cu",

@@ -20,6 +20,7 @@ import torch
 
 DEFAULT_BLOCK = 32          # values per shared exponent (paper: norm block)
 DEFAULT_MANTISSA = 10       # FP16 mantissa width used by the paper
+WIDE_MANTISSA = 15          # paper's widened accumulator mantissa
 
 _MIN_NORMAL = 2.0 ** -126
 

@@ -185,6 +185,15 @@ def upsample2x_conv3x3_fused(x: torch.Tensor, w: torch.Tensor
     return out.reshape(n, 2 * h, 2 * wd, -1)
 
 
+def upsample_mac_counts(h: int, w: int, cin: int, cout: int) -> dict:
+    """MACs of a 2x upsample and 3x3 conv of an (h, w) plane: naive (the
+    conv over the zero-inserted plane) against the fused phases (1 + 2 +
+    2 + 4 taps per 2x2 output block)."""
+    naive = (2 * h) * (2 * w) * 9 * cin * cout
+    fused = h * w * (1 + 2 + 2 + 4) * cin * cout
+    return {"naive": naive, "fused": fused, "reduction": 1 - fused / naive}
+
+
 def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
     n, h, w, c = x.shape
     x = x[:, :, None, :, None, :].expand(n, h, 2, w, 2, c)

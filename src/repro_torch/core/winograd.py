@@ -146,3 +146,16 @@ def winograd_conv2d(x: torch.Tensor, w: torch.Tensor,
     v, (out_h, out_w, th, tw) = input_tiles(x, padding)
     u = transform_weights(w.to(torch.float32)).reshape(36, cin, cout)
     return tiles_to_nhwc(tile_products(v, u), n, th, tw, out_h, out_w)
+
+
+def multiply_count(h: int, w: int, cin: int, cout: int) -> dict:
+    """Multiplies of a 3x3 conv over an (h, w) plane, direct against
+    F(4x4, 3x3) (the paper's 144 -> 36 per 4x4 tile), and the transforms'
+    operations (the paper rearranges BᵀXB from 12 to 6 multiplies per
+    row pass; A and B hold small integers and zeros)."""
+    tiles = -(-h // TILE_OUT) * (-(-w // TILE_OUT))
+    direct = h * w * 9 * cin * cout
+    wino = tiles * 36 * cin * cout
+    transforms = tiles * (6 * 6 + 6 * 4) * (cin + cout)
+    return {"direct": direct, "winograd_mac": wino,
+            "transform_ops": transforms, "mac_reduction": direct / wino}

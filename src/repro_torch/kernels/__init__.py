@@ -17,9 +17,10 @@ raises.  Each wrapper counts its launches in a plain integer attribute,
 :func:`reset_launch_counts` zeroes.
 
 No kernel has a backward (nor has any Pallas kernel of the reference a
-VJP): K1, K2 and K3's wrappers raise, on any device, when grad mode is
-on and an operand requires grad (:func:`refuse_autograd`), rather than
-return a result that carries no gradient.
+VJP): every wrapper raises, on any device, when grad mode is on and an
+operand requires grad (:func:`refuse_autograd`), rather than return a
+result that carries no gradient.  LM training therefore runs without
+``use_flash`` and ``use_kernel``, as the reference's does.
 """
 from __future__ import annotations
 

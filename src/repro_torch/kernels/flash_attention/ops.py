@@ -18,7 +18,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_autograd
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -66,7 +66,10 @@ def flash_attention_padded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q (B, Hq, Lq, D), k/v (B, Hkv, Lkv, D) -> (B, Hq, Lq, D) in q's
     type; columns at or past ``kv_len`` are masked.  On a CUDA tensor the
     kernel runs bf16 on ``wgmma`` and f32 on 3xTF32 ``mma.sync``; on a CPU
-    tensor :func:`flash_attention_plain` runs."""
+    tensor :func:`flash_attention_plain` runs.  The kernel has no
+    backward, so operands that require grad are refused on both devices
+    (:func:`repro_torch.kernels.refuse_autograd`)."""
+    refuse_autograd("flash_attention", q, k, v)
     B, Hq, Lq, D = q.shape
     if (k.dim() != 4 or k.shape != v.shape or k.shape[0] != B
             or k.shape[3] != D or Hq % k.shape[1] != 0 or Lq != k.shape[2]):

@@ -15,7 +15,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_autograd
 
 F32 = torch.float32
 
@@ -42,7 +42,9 @@ def ssd_chunk(c: torch.Tensor, b: torch.Tensor, xdt: torch.Tensor,
     the operands may be strided views whose innermost stride is 1 (scum's
     innermost dim has size 1); y comes back as a ``(BC, G, HPG, Lc, P)``
     view of memory laid out ``(BC, Lc, G, HPG, P)``, the order the
-    caller's ``(B, nc, Lc, H, P)`` sum reads."""
+    caller's ``(B, nc, Lc, H, P)`` sum reads.  The kernel has no
+    backward: operands that require grad are refused on both devices."""
+    refuse_autograd("ssd_chunk", c, b, xdt, scum)
     BC, G, Lc, N = c.shape
     if (xdt.dim() != 5 or tuple(b.shape) != (BC, G, Lc, N)
             or tuple(xdt.shape[:2]) != (BC, G) or xdt.shape[3] != Lc

@@ -52,6 +52,7 @@ def prefix_embed_for(cfg: ArchConfig, batch: int, generator: torch.Generator):
             ).to(spec.dtype)
 
 
+@torch.no_grad()
 def prefill(model: LMModel, params, prompts: torch.Tensor, max_len: int,
             prefix_embed=None):
     """prompts (B, L) -> (first greedy token (B,) int32, logits (B, L, V)
@@ -59,11 +60,12 @@ def prefill(model: LMModel, params, prompts: torch.Tensor, max_len: int,
     frontend stub's output for ``audio`` and ``vlm``; decode continues at
     ``decode_start(model.cfg, L)``."""
     logits, cache = model.forward(params, prompts, prefix_embed=prefix_embed,
-                                  cache_out=True, max_len=max_len,
-                                  ctx_extra=PREFILL_CTX)
+                                  mode="serve", cache_out=True,
+                                  max_len=max_len, ctx_extra=PREFILL_CTX)
     return logits[:, -1, :].argmax(-1).to(torch.int32), logits, cache
 
 
+@torch.no_grad()
 def decode(model: LMModel, params, tok: torch.Tensor, cache, pos: int,
            steps: int):
     """``steps`` greedy decode steps from ``tok`` (B,) at position

@@ -44,18 +44,43 @@ def _maybe_bfp(x: torch.Tensor, table: Dict[str, Any], axis: int = -1):
     return x
 
 
+class _LowPrecisionMatmul(torch.autograd.Function):
+    """a @ w, 2-D or batched 3-D, of two CUDA tensors of one 16-bit type
+    with an f32 result, by cuBLAS's ``out_dtype`` (which has no backward
+    of its own).  The backward rounds the f32 cotangent to the operands'
+    type and multiplies in that type with f32 accumulation; the CPU
+    route widens the operands instead and stays exact in f32."""
+
+    @staticmethod
+    def forward(ctx, a, w):
+        ctx.save_for_backward(a, w)
+        mm = torch.bmm if a.dim() == 3 else torch.mm
+        return mm(a, w, out_dtype=F32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, w = ctx.saved_tensors
+        g = g.to(a.dtype)
+        ga = g @ w.transpose(-1, -2) if ctx.needs_input_grad[0] else None
+        gw = a.transpose(-1, -2) @ g if ctx.needs_input_grad[1] else None
+        return ga, gw
+
+
+low_precision_matmul = _LowPrecisionMatmul.apply
+
+
 def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (..., K) @ w (K, N) with w cast to x's type, f32 accumulation
     and an f32 result.  Products of bf16 values are exact in f32, so on
-    the CPU bf16 operands are widened first; on the card ``torch.mm``
-    takes them as they are and returns f32."""
+    the CPU bf16 operands are widened first; on the card cuBLAS takes
+    them as they are and returns f32 (:func:`low_precision_matmul`)."""
     w = w.to(x.dtype)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if x.dtype == F32:
         y = x2 @ w
     elif x.is_cuda:
-        y = torch.mm(x2, w, out_dtype=F32)
+        y = low_precision_matmul(x2, w)
     else:
         y = x2.to(F32) @ w.to(F32)
     return y.reshape(*lead, w.shape[-1])
@@ -118,17 +143,19 @@ def layernorm(p, x, *, mc=None, table=None, ctx=None):
 # ---------------------------------------------------------------------------
 
 def embed_meta(vocab: int, d: int, dtype) -> Dict[str, ParamMeta]:
-    return {"table": ParamMeta((vocab, d), dtype, init="normal", scale=0.02)}
+    return {"table": ParamMeta((vocab, d), dtype, init="normal", scale=0.02,
+                               prefs=((0, "model"), (1, "data")))}
 
 
 def embed(p, tokens, *, mc=None, table=None, ctx=None):
     dtype = as_dtype(table.get("compute_dtype", "bfloat16")) if table \
         else torch.bfloat16
-    return p["table"][tokens].to(dtype)
+    return F.embedding(tokens, p["table"]).to(dtype)
 
 
 def lm_head_meta(d: int, vocab: int, dtype) -> Dict[str, ParamMeta]:
-    return {"w": ParamMeta((d, vocab), dtype, init="scaled")}
+    return {"w": ParamMeta((d, vocab), dtype, init="scaled",
+                           prefs=((1, "model"), (0, "data")))}
 
 
 def lm_head(p, x, *, mc=None, table=None, ctx=None):
@@ -142,10 +169,14 @@ def lm_head(p, x, *, mc=None, table=None, ctx=None):
 def attention_meta(d_model: int, n_heads: int, n_kv: int, head_dim: int,
                    dtype, qkv_bias: bool = False) -> Dict[str, ParamMeta]:
     m = {
-        "wq": ParamMeta((d_model, n_heads, head_dim), dtype, init="scaled"),
-        "wk": ParamMeta((d_model, n_kv, head_dim), dtype, init="scaled"),
-        "wv": ParamMeta((d_model, n_kv, head_dim), dtype, init="scaled"),
-        "wo": ParamMeta((n_heads, head_dim, d_model), dtype, init="scaled"),
+        "wq": ParamMeta((d_model, n_heads, head_dim), dtype, init="scaled",
+                        prefs=((1, "model"), (0, "data"))),
+        "wk": ParamMeta((d_model, n_kv, head_dim), dtype, init="scaled",
+                        prefs=((1, "model"), (0, "data"))),
+        "wv": ParamMeta((d_model, n_kv, head_dim), dtype, init="scaled",
+                        prefs=((1, "model"), (0, "data"))),
+        "wo": ParamMeta((n_heads, head_dim, d_model), dtype, init="scaled",
+                        prefs=((0, "model"), (2, "data"))),
     }
     if qkv_bias:
         m["bq"] = ParamMeta((n_heads, head_dim), dtype, init="zeros")
@@ -172,16 +203,19 @@ def _proj_qkv(p, x, table):
     return q, k, v
 
 
-def _sdpa_full(q, k, v, *, causal: bool) -> torch.Tensor:
+def _sdpa_full(q, k, v, *, causal: bool, shard=None) -> torch.Tensor:
     """(B, L, H, hd) x (B, S, K, hd) dense attention with GQA broadcast.
     The probabilities are rounded to the compute type before P.V, as in
     the reference; queries go in chunks of ``Q_CHUNK`` rows so that one
-    (B, H, chunk, S) score block is live at a time."""
+    (B, H, chunk, S) score block is live at a time.  ``shard`` is the
+    training step's activation constrainer (runtime/sharding.py)."""
     B, L, H, hd = q.shape
     S, K = k.shape[1], k.shape[2]
     g = H // K
     kf = k.repeat_interleave(g, dim=2) if g > 1 else k
     vf = v.repeat_interleave(g, dim=2) if g > 1 else v
+    if shard is not None:
+        q, kf, vf = (shard(t, "blhd") for t in (q, kf, vf))
     scale = hd ** -0.5
     chunk = min(Q_CHUNK, L)
 
@@ -265,10 +299,13 @@ def attention(p, x, *, mc=None, table=None, ctx=None):
                                 v.transpose(1, 2).contiguous(),
                                 causal=causal).transpose(1, 2)
         else:
-            o = _sdpa_full(q, k, v, causal=causal)
+            o = _sdpa_full(q, k, v, causal=causal, shard=ctx.get("shard"))
     h, hd, m = p["wo"].shape
-    return matmul_f32(o.to(x.dtype).reshape(*o.shape[:2], h * hd),
-                      p["wo"].reshape(h * hd, m)).to(x.dtype)
+    out = matmul_f32(o.to(x.dtype).reshape(*o.shape[:2], h * hd),
+                     p["wo"].reshape(h * hd, m)).to(x.dtype)
+    if ctx.get("shard") is not None:
+        out = ctx["shard"](out, "bld")
+    return out
 
 
 def cross_attention(p, x, *, mc=None, table=None, ctx=None):
@@ -291,9 +328,12 @@ def cross_attention(p, x, *, mc=None, table=None, ctx=None):
 
 def glu_mlp_meta(d: int, f: int, dtype) -> Dict[str, ParamMeta]:
     return {
-        "wg": ParamMeta((d, f), dtype, init="scaled"),
-        "wu": ParamMeta((d, f), dtype, init="scaled"),
-        "wd": ParamMeta((f, d), dtype, init="scaled"),
+        "wg": ParamMeta((d, f), dtype, init="scaled",
+                        prefs=((1, "model"), (0, "data"))),
+        "wu": ParamMeta((d, f), dtype, init="scaled",
+                        prefs=((1, "model"), (0, "data"))),
+        "wd": ParamMeta((f, d), dtype, init="scaled",
+                        prefs=((0, "model"), (1, "data"))),
     }
 
 
@@ -306,9 +346,11 @@ def glu_mlp(p, x, *, mc=None, table=None, ctx=None):
 
 def mlp_meta(d: int, f: int, dtype) -> Dict[str, ParamMeta]:
     return {
-        "w1": ParamMeta((d, f), dtype, init="scaled"),
+        "w1": ParamMeta((d, f), dtype, init="scaled",
+                        prefs=((1, "model"), (0, "data"))),
         "b1": ParamMeta((f,), dtype, init="zeros"),
-        "w2": ParamMeta((f, d), dtype, init="scaled"),
+        "w2": ParamMeta((f, d), dtype, init="scaled",
+                        prefs=((0, "model"), (1, "data"))),
         "b2": ParamMeta((d,), dtype, init="zeros"),
     }
 

@@ -10,8 +10,9 @@ work scales with ``tokens * top_k * capacity_factor`` and not with the
 number of experts, but every expert's weights are read, at decode too.
 
 The router, softmax and top-k are f32; the expert products accumulate in
-f32 (``torch.bmm(..., out_dtype=f32)`` on bf16 operands on the card,
-widened operands on the CPU) and the combine sums over k in f32.
+f32 (cuBLAS with an f32 result on bf16 operands on the card,
+``layers.low_precision_matmul``; widened operands on the CPU) and the
+combine sums over k in f32.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
-from .layers import _maybe_bfp
+from .layers import _maybe_bfp, low_precision_matmul
 from .params import ParamMeta
 
 F32 = torch.float32
@@ -39,9 +40,12 @@ def moe_meta(d: int, f: int, n_experts: int, dtype,
         raise ValueError(f"d_ff {f} is not a multiple of fission {fission}")
     return {
         "router": ParamMeta((d, n_experts), dtype, init="scaled"),
-        "wg": ParamMeta((E, d, fs), dtype, init="scaled"),
-        "wu": ParamMeta((E, d, fs), dtype, init="scaled"),
-        "wd": ParamMeta((E, fs, d), dtype, init="scaled"),
+        "wg": ParamMeta((E, d, fs), dtype, init="scaled",
+                        prefs=((0, "model"), (2, "model"), (1, "data"))),
+        "wu": ParamMeta((E, d, fs), dtype, init="scaled",
+                        prefs=((0, "model"), (2, "model"), (1, "data"))),
+        "wd": ParamMeta((E, fs, d), dtype, init="scaled",
+                        prefs=((0, "model"), (1, "model"), (2, "data"))),
     }
 
 
@@ -108,14 +112,11 @@ def _expert_matmul(a: torch.Tensor, w: torch.Tensor,
     if a.dtype == w.dtype == F32:
         return torch.bmm(a, w)
     if a.is_cuda and a.dtype == w.dtype:
-        return torch.bmm(a, w, out_dtype=F32)
-    E, C, _ = a.shape
-    out = torch.empty((E, C, w.shape[2]), dtype=F32, device=a.device)
+        return low_precision_matmul(a, w)
     step = max(1, WIDEN_BYTES // (w[0].numel() * 4))
-    for e in range(0, E, step):
-        torch.bmm(a[e:e + step].to(F32), w[e:e + step].to(F32),
-                  out=out[e:e + step])
-    return out
+    return torch.cat([torch.bmm(a[e:e + step].to(F32),
+                                w[e:e + step].to(F32))
+                      for e in range(0, a.shape[0], step)])
 
 
 def moe(p, x, *, mc=None, table=None, ctx=None):
@@ -140,6 +141,8 @@ def moe(p, x, *, mc=None, table=None, ctx=None):
     buf_valid[slot] = r.keep
     xe = (xt[buf_tok[:E * cap]]
           * buf_valid[:E * cap, None].to(x.dtype)).reshape(E, cap, D)
+    if ctx and ctx.get("shard") is not None:
+        xe = ctx["shard"](xe, "ecd")      # experts over "model"
 
     # expert FFN (SwiGLU), batched over experts
     xq = _maybe_bfp(xe, table)

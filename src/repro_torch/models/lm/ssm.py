@@ -35,14 +35,16 @@ def mamba2_meta(d_model: int, d_inner: int, n_heads: int, n_groups: int,
     d_proj = 2 * d_inner + 2 * n_groups * d_state + n_heads
     d_conv = d_inner + 2 * n_groups * d_state
     return {
-        "in_proj": ParamMeta((d_model, d_proj), dtype, init="scaled"),
+        "in_proj": ParamMeta((d_model, d_proj), dtype, init="scaled",
+                             prefs=((1, "model"), (0, "data"))),
         "conv_w": ParamMeta((conv_width, d_conv), dtype, init="scaled"),
         "conv_b": ParamMeta((d_conv,), dtype, init="zeros"),
         "dt_bias": ParamMeta((n_heads,), F32, init="zeros"),
         "A_log": ParamMeta((n_heads,), F32, init="zeros"),
         "D": ParamMeta((n_heads,), F32, init="ones"),
         "norm_scale": ParamMeta((d_inner,), dtype, init="ones"),
-        "out_proj": ParamMeta((d_inner, d_model), dtype, init="scaled"),
+        "out_proj": ParamMeta((d_inner, d_model), dtype, init="scaled",
+                              prefs=((0, "model"), (1, "data"))),
     }
 
 

@@ -14,9 +14,14 @@ module registry, one layer at a time.
             embeddings of a dense decoder                   (internvl)
 
 Parameters stay stacked ``(n_layers, ...)`` as in the reference, so the
-trees match leaf for leaf; the layer loop slices them.  Caches are
-preallocated and written in place; ``decode_step`` returns the same cache
-it was given.  The encoder's self-attention runs dense (``_sdpa_full``)
+trees match leaf for leaf; the layer loop slices them.  ``forward`` in
+``mode="train"`` (the default, as in the reference) builds autograd's
+graph, and with ``cfg.remat`` recomputes each layer in the backward
+(``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of each
+scan body).  The serving paths keep no graph: caches are preallocated and
+written in place, ``forward(cache_out=True)`` and ``decode_step`` run
+under ``torch.no_grad``, and ``decode_step`` returns the same cache it
+was given.  The encoder's self-attention runs dense (``_sdpa_full``)
 even under ``use_flash``, as the reference's encoder context carries no
 flag.
 """
@@ -27,6 +32,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import bfp as bfp_lib
@@ -38,7 +44,7 @@ from . import layers as L
 from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .params import (ParamMeta, as_dtype, leaves_with_path, materialize,
-                     tree_map_meta)
+                     scale_attention_to_fan_in, tree_map_meta)
 
 F32 = torch.float32
 
@@ -181,9 +187,12 @@ def ssm_block_stream(cfg: ArchConfig, prefix="") -> Stream:
 # ---------------------------------------------------------------------------
 
 def _stack_meta(meta_tree, n: int):
-    """Prepend a stacked layer dim to every ParamMeta."""
+    """Prepend a stacked layer dim to every ParamMeta (its axis
+    preferences move up one dim)."""
     return tree_map_meta(
-        lambda m: dataclasses.replace(m, shape=(n,) + m.shape), meta_tree)
+        lambda m: dataclasses.replace(
+            m, shape=(n,) + m.shape,
+            prefs=tuple((d + 1, a) for d, a in m.prefs)), meta_tree)
 
 
 def _index(tree, i: int):
@@ -258,8 +267,12 @@ class LMModel:
         return p
 
     def init_params(self, generator: torch.Generator):
-        """Seeded random weights, drawn on the generator's device."""
-        return materialize(self.param_meta(), generator, self.device)
+        """Seeded random weights, drawn on the generator's device, the
+        attention projections at the fan-in of the axes they contract
+        (:func:`params.scale_attention_to_fan_in`; ``materialize`` of
+        :meth:`param_meta` is the reference's init as drawn)."""
+        return scale_attention_to_fan_in(
+            materialize(self.param_meta(), generator, self.device))
 
     # -- caches --------------------------------------------------------------
     def cache_meta(self, batch: int, max_len: int) -> Dict[str, Any]:
@@ -268,22 +281,28 @@ class LMModel:
         quant = cfg.kv_cache_dtype == "int8"
         kvdt = torch.int8 if quant else dt
         shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
+        by_batch = ((0, ("pod", "data")),)
+        by_batch_model = ((0, ("pod", "data")), (1, "model"))
 
         def kv():
-            m = {"k": ParamMeta(shape, kvdt, init="zeros"),
-                 "v": ParamMeta(shape, kvdt, init="zeros")}
+            m = {"k": ParamMeta(shape, kvdt, init="zeros",
+                                prefs=by_batch_model),
+                 "v": ParamMeta(shape, kvdt, init="zeros",
+                                prefs=by_batch_model)}
             if quant:   # per-vector scales (paper C2 on the KV stream)
                 for s in ("k_scale", "v_scale"):
-                    m[s] = ParamMeta(shape[:3], torch.float16, init="zeros")
+                    m[s] = ParamMeta(shape[:3], torch.float16, init="zeros",
+                                     prefs=by_batch_model)
             return m
 
         def ssm():
             d_conv = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
             return {
                 "conv": ParamMeta((batch, cfg.conv_width - 1, d_conv), dt,
-                                  init="zeros"),
+                                  init="zeros", prefs=by_batch),
                 "ssm": ParamMeta((batch, cfg.ssm_heads, cfg.ssm_headdim,
-                                  cfg.ssm_state), F32, init="zeros"),
+                                  cfg.ssm_state), F32, init="zeros",
+                                 prefs=by_batch_model),
             }
 
         if self.block_kind == "attn":
@@ -293,7 +312,8 @@ class LMModel:
         if self.block_kind == "encdec":
             return {"layers": _stack_meta(kv(), cfg.n_layers),
                     "memory": ParamMeta((batch, cfg.frontend_len,
-                                         cfg.d_model), dt, init="zeros")}
+                                         cfg.d_model), dt, init="zeros",
+                                        prefs=by_batch)}
         n_sites = cfg.n_layers // cfg.attn_every
         return {"layers": _stack_meta(ssm(), cfg.n_layers),
                 "shared_attn": _stack_meta(kv(), n_sites)}
@@ -320,6 +340,8 @@ class LMModel:
         """Run layer ``i`` of a stacked block through its stream."""
         step_ctx = dict(ctx)
         step_ctx["cache_len"] = ctx.get("cache_len", 0)
+        if step_ctx.get("shard") is not None and h.dim() == 3:
+            h = step_ctx["shard"](h, "boundary")   # the saved residual
         if stacked_cache is not None:
             step_ctx["cache"] = _index(stacked_cache, i)
         y, step_ctx = fn(_index(stacked_params, i), h, step_ctx)
@@ -327,20 +349,30 @@ class LMModel:
             _write_back(stacked_cache, i, step_ctx["cache"])
         return y
 
-    def _run_blocks(self, params, x, ctx, cache):
-        """The layer stack; ``cache`` (or None) is updated in place."""
+    def _layer_remat(self, remat: bool, *args):
+        """:meth:`_layer`, recomputed in the backward when ``remat``."""
+        if remat:
+            return checkpoint(self._layer, *args, use_reentrant=False)
+        return self._layer(*args)
+
+    def _run_blocks(self, params, x, ctx, cache, remat: bool = False):
+        """The layer stack; ``cache`` (or None) is updated in place.  With
+        ``remat`` each layer of the stack is recomputed in the backward
+        (the hybrid's shared block is not, as in the reference)."""
         cfg = self.cfg
         fn = self.block.fn()
         lc = cache["layers"] if cache is not None else None
         if self.block_kind != "hybrid":
             for i in range(cfg.n_layers):
-                x = self._layer(fn, params["layers"], i, x, ctx, lc)
+                x = self._layer_remat(remat, fn, params["layers"], i, x, ctx,
+                                      lc)
             return x
         shared_fn = self.shared.fn()
         per = cfg.attn_every
         for g in range(cfg.n_layers // per):
             for i in range(g * per, (g + 1) * per):
-                x = self._layer(fn, params["layers"], i, x, ctx, lc)
+                x = self._layer_remat(remat, fn, params["layers"], i, x, ctx,
+                                      lc)
             sctx = dict(ctx)
             if cache is not None:
                 sctx["cache"] = _index(cache["shared_attn"], g)
@@ -349,7 +381,7 @@ class LMModel:
                 _write_back(cache["shared_attn"], g, sctx["cache"])
         return x
 
-    def _encode(self, params, prefix_embed):
+    def _encode(self, params, prefix_embed, remat: bool = False):
         """The audio encoder over the stub's frames (B, S, D): positions
         0..S-1, non-causal, dense attention."""
         enc = prefix_embed.to(as_dtype(self.cfg.compute_dtype))
@@ -358,19 +390,35 @@ class LMModel:
                "mode": "full"}
         fn = self.enc_block.fn()
         for i in range(self.cfg.encoder_layers):
-            enc = self._layer(fn, params["enc_layers"], i, enc, ctx)
+            enc = self._layer_remat(remat, fn, params["enc_layers"], i, enc,
+                                    ctx)
         return enc
 
-    @torch.no_grad()
     def forward(self, params, tokens, *, prefix_embed=None, positions=None,
-                cache_out: bool = False, max_len: int = 0,
+                mode: str = "train", cache_out: bool = False,
+                max_len: int = 0,
                 ctx_extra: Optional[Dict[str, Any]] = None):
         """Full-sequence forward (train / prefill): f32 logits (B, L, V),
-        and with ``cache_out`` the cache filled for decode.
-        ``prefix_embed`` (B, frontend_len, D) is the frontend stub's
-        output: ``vlm`` puts it before the token embeddings (the cache
-        then holds frontend_len + L positions, and the logits are the
-        tokens' only); ``audio`` needs it, as the encoder's input."""
+        and with ``cache_out`` the cache filled for decode (under
+        ``torch.no_grad``: the cache is written in place).  In
+        ``mode="train"`` with ``cfg.remat`` each layer is recomputed in
+        the backward.  ``prefix_embed`` (B, frontend_len, D) is the
+        frontend stub's output: ``vlm`` puts it before the token
+        embeddings (the cache then holds frontend_len + L positions, and
+        the logits are the tokens' only); ``audio`` needs it, as the
+        encoder's input."""
+        if cache_out:
+            with torch.no_grad():
+                return self._forward(params, tokens, prefix_embed,
+                                     positions, False, max_len, ctx_extra,
+                                     cache_out=True)
+        remat = (self.cfg.remat and mode == "train"
+                 and torch.is_grad_enabled())
+        return self._forward(params, tokens, prefix_embed, positions, remat,
+                             max_len, ctx_extra)
+
+    def _forward(self, params, tokens, prefix_embed, positions, remat,
+                 max_len, ctx_extra, cache_out: bool = False):
         if self.block_kind == "encdec" and prefix_embed is None:
             raise ValueError(f"{self.cfg.name} is an encoder-decoder: "
                              f"forward needs prefix_embed, the encoder's "
@@ -390,15 +438,17 @@ class LMModel:
         }
         if ctx_extra:
             ctx.update(ctx_extra)
+        if ctx.get("shard") is not None:
+            x = ctx["shard"](x, "bld")
         cache = None
         if cache_out:
             cache = self.init_cache(B, max_len or Lseq)
             ctx["cache_len"] = 0
         if self.block_kind == "encdec":
-            ctx["memory"] = self._encode(params, prefix_embed)
+            ctx["memory"] = self._encode(params, prefix_embed, remat)
             if cache is not None:
                 cache["memory"].copy_(ctx["memory"])
-        y = self._run_blocks(params, x, ctx, cache)
+        y = self._run_blocks(params, x, ctx, cache, remat)
         logits = self._head(params, y)
         if vlm_prefix:
             logits = logits[:, prefix_embed.shape[1]:]
@@ -433,13 +483,20 @@ class LMModel:
 # losses / counts
 # ---------------------------------------------------------------------------
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean CE over valid (label >= 0) positions; logits (B, L, V)."""
+def token_nll(logits: torch.Tensor, labels: torch.Tensor):
+    """(summed negative log-likelihood over the valid (label >= 0)
+    positions, their count) in f32; logits (B, L, V)."""
     valid = (labels >= 0).to(F32)
     lab = torch.clamp(labels, min=0)
     logp = torch.log_softmax(logits.to(F32), dim=-1)
     ll = torch.gather(logp, -1, lab[..., None].long())[..., 0]
-    return -torch.sum(ll * valid) / torch.clamp(torch.sum(valid), min=1.0)
+    return -torch.sum(ll * valid), torch.sum(valid)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean CE over valid (label >= 0) positions; logits (B, L, V)."""
+    nll, n = token_nll(logits, labels)
+    return nll / torch.clamp(n, min=1.0)
 
 
 def count_params(cfg: ArchConfig, active_only: bool = False) -> int:

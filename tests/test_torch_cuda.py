@@ -939,3 +939,138 @@ class TestOnCard:
         assert got.dtype == torch.float32
         torch.testing.assert_close(got, torch.bmm(a.float(), w.float()),
                                    atol=1e-3, rtol=1e-3)
+
+    @pytest.mark.parametrize("a_shape,w_shape", [((96, 256), (256, 80)),
+                                                 ((4, 40, 256), (4, 256, 96))])
+    def test_low_precision_matmul_backward(self, a_shape, w_shape):
+        """low_precision_matmul's (grad_a, grad_w) against autograd of the
+        widened f32 product (TF32 off).  Its backward rounds the f32
+        cotangent to bf16 (at most 2^-9 of each element) and returns bf16
+        (2^-9 again), so each gradient element lies within (2^-8 + 2^-12)
+        of the sum of its terms' magnitudes (|g| @ |w|ᵀ, |a|ᵀ @ |g|) of
+        the f32 one; 2^-12 covers the f32 accumulation over K = 256."""
+        dev = _cuda()
+        from repro_torch.models.lm.layers import low_precision_matmul
+
+        a = torch.from_numpy(_normal(10, a_shape)).to(dev).bfloat16() \
+            .requires_grad_()
+        w = (torch.from_numpy(_normal(11, w_shape)) / 16).to(dev) \
+            .bfloat16().requires_grad_()
+        g = torch.from_numpy(_normal(12, a_shape[:-1] + w_shape[-1:])) \
+            .to(dev)
+        y = low_precision_matmul(a, w)
+        assert y.dtype == torch.float32
+        ga, gw = torch.autograd.grad(y, (a, w), g)
+        assert ga.dtype == gw.dtype == torch.bfloat16
+        a32, w32 = (t.detach().float().requires_grad_() for t in (a, w))
+        want_a, want_w = torch.autograd.grad(torch.matmul(a32, w32),
+                                             (a32, w32), g)
+        tol = 2.0 ** -8 + 2.0 ** -12
+        bound_a = tol * (g.abs() @ w32.detach().abs().transpose(-1, -2))
+        bound_w = tol * (a32.detach().abs().transpose(-1, -2) @ g.abs())
+        assert bool(((ga.float() - want_a).abs() <= bound_a).all())
+        assert bool(((gw.float() - want_w).abs() <= bound_w).all())
+
+    # -- LM training on the card ----------------------------------------------
+
+    def test_k4_k5_refuse_autograd_on_card(self):
+        """K4 and K5 have no backward: on the card, as on the CPU, an
+        operand that requires grad makes the wrapper raise, and a
+        train-mode forward through their routes raises with them; under
+        no_grad the same calls launch."""
+        dev = _cuda()
+        from repro_torch import configs
+        from repro_torch.core import tree as tree_lib
+        from repro_torch.models.lm import LMModel
+
+        q, k, v = (torch.from_numpy(_normal(i, (1, 2, 64, 64))).to(dev)
+                   .requires_grad_(True) for i in range(3))
+        c, b = (torch.from_numpy(_normal(i, (2, 1, 16, 8))).to(dev)
+                .requires_grad_(True) for i in (3, 4))
+        xdt = torch.from_numpy(_normal(5, (2, 1, 2, 16, 8))).to(dev)
+        scum = -torch.cumsum(torch.from_numpy(
+            np.abs(_normal(6, (2, 1, 2, 16, 1)))).to(dev), dim=3)
+        calls = [(flash_attention_padded,
+                  lambda: flash_attention_padded(q, k, v, sm_scale=0.125,
+                                                 causal=True, kv_len=64)),
+                 (ssd_chunk, lambda: ssd_chunk(c, b, xdt, scum))]
+        for wrapper, call in calls:
+            with pytest.raises(RuntimeError, match="no backward"):
+                call()
+            before = wrapper.launches
+            with torch.no_grad():
+                call()
+            assert wrapper.launches == before + 1
+        for arch in ("tinyllama-1.1b", "mamba2-370m"):
+            model = LMModel(configs.get_smoke_config(arch), dev)
+            live = tree_lib.tree_map(
+                lambda p: p.requires_grad_(True),
+                model.init_params(torch.Generator(dev).manual_seed(0)))
+            toks = torch.randint(0, model.cfg.vocab, (2, 16), device=dev)
+            ctx = {"use_flash": True, "use_kernel": True}
+            with pytest.raises(RuntimeError, match="no backward"):
+                model.forward(live, toks, ctx_extra=ctx)
+            with torch.no_grad():
+                assert model.forward(live, toks, ctx_extra=ctx).grad_fn \
+                    is None
+
+    @pytest.mark.parametrize("param_dtype", ["float32", "bfloat16"])
+    def test_lm_train_step_on_card(self, param_dtype):
+        """A mode="train" TinyLlama smoke step on the card (remat on): the
+        logits keep their grad_fn on the plain routes, every gradient is
+        finite and on the card, in the leaf's type, and the step matches
+        the same step on the CPU (f32: loss 1e-5 relative, gradients 1e-3
+        of each leaf's largest |g|; bf16: 2^-8 and 2^-5, a few units of
+        bf16's rounding, which the card's backward applies to each f32
+        cotangent and either device to each bf16 activation)."""
+        import dataclasses
+
+        dev = _cuda()
+        from repro_torch import configs
+        from repro_torch.core import tree as tree_lib
+        from repro_torch.models.lm import LMModel, cross_entropy
+        from repro_torch.optim import value_and_grad
+
+        cfg = dataclasses.replace(configs.get_smoke_config("tinyllama-1.1b"),
+                                  param_dtype=param_dtype,
+                                  compute_dtype=param_dtype, remat=True)
+        cpu = LMModel(cfg, "cpu")
+        params = cpu.init_params(torch.Generator().manual_seed(0))
+        toks = torch.randint(0, cfg.vocab, (2, 16),
+                             generator=torch.Generator().manual_seed(1))
+        out = {}
+        for model, d in ((LMModel(cfg, dev), dev), (cpu, "cpu")):
+            p = tree_lib.tree_map(lambda t: t.to(d), params)
+            live = tree_lib.tree_map(lambda t: t.requires_grad_(True), p)
+            assert model.forward(live, toks.to(d)).grad_fn is not None
+            out[str(d)] = value_and_grad(
+                lambda q: cross_entropy(model.forward(q, toks.to(d)),
+                                        toks.to(d)), p)
+        (loss, grads), (want_loss, want) = out[str(dev)], out["cpu"]
+        assert bool(torch.isfinite(loss))
+        for g, w in zip(tree_lib.leaves(grads), tree_lib.leaves(want)):
+            assert g.device.type == "cuda" and g.dtype == w.dtype
+            assert bool(torch.isfinite(g).all())
+        loss_rel, grad_share = (1e-5, 1e-3) if param_dtype == "float32" \
+            else (2.0 ** -8, 2.0 ** -5)
+        assert float(loss) == pytest.approx(float(want_loss), rel=loss_rel)
+        for g, w in zip(tree_lib.leaves(grads), tree_lib.leaves(want)):
+            err = float((g.cpu().float() - w.float()).abs().max())
+            assert err <= grad_share * float(w.float().abs().max())
+
+    def test_prefetcher_puts_token_batches_on_card(self):
+        """Prefetcher(device="cuda") yields TokenDataset's batches on the
+        card, each read on the consumer's stream after its copy."""
+        dev = _cuda()
+        from repro_torch.data import Prefetcher, TokenDataset
+
+        ds = TokenDataset(1000, 128, 8, seed=0)
+        got = list(Prefetcher((ds.batch(i) for i in range(6)), device=dev))
+        assert len(got) == 6
+        for i, b in enumerate(got):
+            want = ds.batch(i)
+            for k in ("tokens", "labels"):
+                assert b[k].device.type == "cuda"
+                # a read on the consumer's stream, before any sync
+                assert int((b[k].long().sum()).item()) == int(want[k].sum())
+                np.testing.assert_array_equal(b[k].cpu().numpy(), want[k])
