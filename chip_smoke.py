@@ -27,7 +27,8 @@ non-zero before the result line is printed.
    Kimi-K2's prefill (4, Hq 64, Hkv 8, L 512, D 112) in bf16 and f32,
    at InternVL2-76B's (4, Hq 64, Hkv 8, L 768: 256 patches and 512
    tokens, D 128), Grok-1's (4, Hq 48, Hkv 8, L 512, D 128) and Whisper's
-   decoder's (4, H 6, L 64, D 64) in bf16 (``K4_CASES``; in f32 q and k
+   decoder's (4, H 6, L 64, D 64) in bf16, and at phase 8's InternLM2
+   microbatch (2, Hq 16, Hkv 8, L 512, D 128) in f32 (``K4_CASES``; in f32 q and k
    are scaled by 2 and v by 32, where one TF32 term would miss the
    tolerance); K5 at
    Zamba2's prefill (BC 16, G 1, HPG 80, Lc 128, N 64, P 64) on the
@@ -211,7 +212,7 @@ non-zero before the result line is printed.
    rounds each f32 cotangent to bf16): loss within 2^-8 relative, each
    gradient leaf within 2^-5 of its largest |g|.
    7c: TinyLlama-1.1B as published (22 layers, bf16, remat on), batch 4
-   x 512 from ``TokenDataset`` through ``Prefetcher(device="cuda")``, 12
+   x 512 from ``TokenDataset`` through ``Prefetcher()`` (the card), 12
    steps of ``launch/train.make_step`` (AdamW, f32 moments): loss and
    gradient norm finite at every step, no kernel launched; median step
    ms, tokens/s, peak memory and the share of the bf16 bound (8·N per
@@ -225,12 +226,44 @@ non-zero before the result line is printed.
    card: the final checkpoint's bytes equal an uninterrupted run's.
    7e: ``launch/train_lm_100m.main(["--steps", "200", "--crash-at",
    "120"])`` on the card prints ``train_lm_100m OK``.
+8. Pipeline parallelism (``phase_pipeline``): InternLM2-1.8B at
+   published widths and full depth (24 layers, f32), its stacked layer
+   params through ``runtime.pipeline.split_stages(., 4)`` on a (4, 2)
+   ("stage", "mdl") host mesh of cuda:0, ``LMModel.layer_fn()`` (one
+   train-mode decoder layer) as the layer, the embedding of seeded
+   tokens as ``microbatch(., 4)`` of batch 8 x 512.  The forward must
+   match the sequential per-microbatch loop over the 24 layers within
+   1e-5 of its largest |y|, the gradients of sum(y^2) w.r.t. the staged
+   params (restaged) the loop's within 1e-4 of each leaf's largest |g|,
+   and remat on and off the same loss within 1e-6 relative (bit-equality
+   printed); forward+backward ms of both (host clock, median of 3), peak
+   memory with remat on and off, and the dry run's account of the same
+   call on meta (FLOPs, bytes saved for the backward) are printed.  Then
+   under ``no_grad`` with ``use_flash`` the pipelined forward must launch
+   K4 (f32) 24 x 4 = 96 times and nothing else, equal the same loop
+   with ``use_flash`` within K4's f32 tolerance (atol/rtol 2e-3), and
+   equal the plain-attention pipeline within 2e-3 of its largest |y|
+   (phase 1 holds K4 against its plain version at this D 128 f32 shape).
+9. The dry run against the card (``phase_dryrun``):
+   ``launch/dryrun.run_cell`` on the meta device for 7c's cell
+   (TinyLlama-1.1B as published, bf16, batch 4 x 512, a 1x1 mesh), remat
+   on and off.  Its argument bytes must equal exactly the summed nbytes
+   of the params, AdamW state and batch 7c placed on the card; remat off
+   must predict more saved bytes than remat on; and the remat-off saved
+   bytes must fall within 0.5-2x of 7c's forward-and-backward peak above
+   the state.  Both sides leave out the resident params, optimizer state
+   and batch; the card's peak also holds the backward's transients
+   (gradients as they arrive, the loss's f32 logits and their gradient),
+   so the bytes the card's forward leaves for the backward (allocated
+   after the forward, graph alive, above the same base) are printed
+   beside it as the same buffers the dry run counts.  The remat-on
+   ratios and the counted FLOPs against 7c's 8·N·T are printed.
 
 The last lines are a ``{"kernels": [...]}`` JSON line (``launches``: the
 VGG-16 PixelLink forward's and the Zamba2 prefill's counts;
 ``launches_by_path``: ResNet-50's forward, one EAST and DB serving
-batch, the plans, one fleet replica batch, the deploy check and each
-phase-4 model's prefill), the
+batch, the plans, one fleet replica batch, the deploy check, each
+phase-4 model's prefill and phase 8's pipelined forward), the
 card's name and power limit from nvidia-smi, and ``{"ok": true,
 "device": {...}}``.
 
@@ -246,6 +279,7 @@ device time by kernel and the device's busy share of each.
 """
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -297,6 +331,7 @@ K4_CASES = (
      "float32"),
     ("internvl2 prefill bf16", (LM_BATCH, 64, 8, 256 + LM_PROMPT, 128),
      "bfloat16"),
+    ("internlm2 pipeline f32 D 128", (2, 16, 8, 512, 128), "float32"),
     ("grok-1 prefill bf16 GQA 6", (LM_BATCH, 48, 8, LM_PROMPT, 128),
      "bfloat16"),
     ("whisper decoder prefill bf16", (LM_BATCH, 6, 6, 64, 64), "bfloat16"))
@@ -1657,6 +1692,7 @@ def _family_config(arch: str, layers):
 
 
 def _free(torch) -> None:
+    gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -2476,10 +2512,12 @@ def phase_lm_train_parity(torch) -> None:
         log(_train_parity(torch, arch, layers, dtype))
 
 
-def phase_lm_training(torch, np, profile=False) -> dict:
+def phase_lm_training(torch, np, profile=False):
     """7c: TinyLlama-1.1B as published (22 layers, bf16, remat) trained
     12 steps at batch 4 x 512 through launch/train.make_step; then 2 steps
-    with remat off from the same state.  Returns the launches."""
+    with remat off from the same state.  Returns the launches, and for
+    phase 9 the bytes of the state and batch it placed and the forward
+    and backward's memory above them."""
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.core import tree as tree_lib
@@ -2505,8 +2543,7 @@ def phase_lm_training(torch, np, profile=False) -> dict:
         state, losses, norms, walls = state0, [], [], []
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        feed = Prefetcher((ds.batch(i) for i in range(n_steps)),
-                          device="cuda")
+        feed = Prefetcher(ds.batch(i) for i in range(n_steps))
         for batch in feed:
             t0 = time.perf_counter()
             state, m = step(state, batch)
@@ -2549,8 +2586,8 @@ def phase_lm_training(torch, np, profile=False) -> dict:
         fail(f"7c: remat off losses {losses_off} vs on {losses[:2]}")
     # the forward and backward alone: the update's copies of the state
     # set the step's peak, whatever the activations
-    batch = {k: torch.from_numpy(v).cuda() for k, v in ds.batch(0).items()}
-    grad_peak = {}
+    batch = next(Prefetcher(iter([ds.batch(0)])))      # as 7c's steps
+    grad_peak, held = {}, {}
     for name, m in (("on", model), ("off", plain)):
         _free(torch)
         base = torch.cuda.memory_allocated()
@@ -2558,14 +2595,30 @@ def phase_lm_training(torch, np, profile=False) -> dict:
         value_and_grad(train.make_loss(m), params0, batch)
         torch.cuda.synchronize()
         grad_peak[name] = torch.cuda.max_memory_allocated() - base
+        # what the forward leaves for the backward: the buffers phase 9's
+        # dry run counts (the leaves share the parameters' storage)
+        live = tree_lib.tree_map(lambda t: t.detach().requires_grad_(True),
+                                 params0)
+        _free(torch)
+        base = torch.cuda.memory_allocated()
+        with torch.enable_grad():
+            loss = train.make_loss(m)(live, batch)
+        torch.cuda.synchronize()
+        held[name] = torch.cuda.memory_allocated() - base
+        del loss, live
     log(f"7c remat off, 2 steps from the same state: step peak "
         f"{peak_off / 2**30:.2f} GiB against {peak / 2**30:.2f} with remat;"
         f" forward and backward above the state: "
         f"{grad_peak['off'] / 2**30:.2f} GiB against "
-        f"{grad_peak['on'] / 2**30:.2f} with remat; losses {losses_off} "
+        f"{grad_peak['on'] / 2**30:.2f} with remat (held after the forward "
+        f"{held['off'] / 2**30:.2f} and {held['on'] / 2**30:.2f} GiB); "
+        f"losses {losses_off} "
         f"against {losses[:2]} (max rel {rel:.2e}, "
         f"{'bit-equal' if losses_off == losses[:2] else 'not bit-equal'});"
         f" step {walls_off[-1] * 1e3:.2f} ms")
+    # the arguments phase 9's dry run counts: params, AdamW state, batch
+    state_bytes = sum(t.numel() * t.element_size() for t in
+                      tree_lib.leaves((state0[0], state0[1], batch)))
     del state0, params0
     _free(torch)
     # the same draw without init_params' fan-in rescale (the reference's
@@ -2580,7 +2633,10 @@ def phase_lm_training(torch, np, profile=False) -> dict:
         f" against {norms[0]:.4g} from init_params (fan-in rescaled)")
     del drawn, m
     _free(torch)
-    return {"lm training step (TinyLlama-1.1B)": launches}
+    facts = {"n_params": n_params, "tokens": tokens,
+             "state_bytes": state_bytes, "grad_peak": grad_peak,
+             "held": held}
+    return {"lm training step (TinyLlama-1.1B)": launches}, facts
 
 
 def _checkpoint_bytes(directory: str, step: int) -> dict:
@@ -2637,6 +2693,242 @@ def phase_lm_100m(torch) -> None:
                                   "--ckpt-dir", os.path.join(d, "ckpt")])
     log(f"7e train_lm_100m: loss {got['first']:.3f} -> {got['last']:.3f} "
         f"over {got['steps']} logged steps ({got['status']})")
+
+
+# phase 8: the pipeline at full width
+PIPE_ARCH, PIPE_STAGES, PIPE_MICRO, PIPE_BATCH, PIPE_SEQ = \
+    "internlm2-1.8b", 4, 4, 8, 512
+K4_F32_TOL = 2e-3
+
+
+def _timed_grad(torch, fn, runs: int = 3):
+    """``fn() -> (y, loss, grads)`` once to warm up, then ``runs`` times:
+    (the last result, the median host-clock ms)."""
+    out, walls = fn(), []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return out, statistics.median(walls)
+
+
+def phase_pipeline(torch) -> dict:
+    """8: InternLM2-1.8B at published widths and full depth (24 layers,
+    f32) through ``runtime.pipeline.pipeline_apply`` in 4 stages on a
+    (4, 2) host mesh of cuda:0, 4 microbatches of 2 x 512, against the
+    sequential per-microbatch loop over the 24 layers.  Returns the
+    launches of the use_flash forward."""
+    from torch.utils.checkpoint import checkpoint
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.lm import LMModel
+    from repro_torch.models.lm import params as params_lib
+    from repro_torch.runtime.pipeline import (microbatch, pipeline_apply,
+                                              split_stages)
+
+    cfg = dataclasses.replace(get_config(PIPE_ARCH), param_dtype="float32",
+                              compute_dtype="float32")
+    model = LMModel(cfg, "cuda")
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    toks = torch.randint(0, cfg.vocab, (PIPE_BATCH, PIPE_SEQ), device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(1))
+    with torch.no_grad():
+        x = microbatch(model._embed(params, toks), PIPE_MICRO)
+    layers = params["layers"]
+    del params
+    _free(torch)
+    L, S = cfg.n_layers, PIPE_STAGES
+    mesh = make_host_mesh((S, 2), ("stage", "mdl"), device="cuda:0")
+    layer_fn = model.layer_fn()
+
+    # the dry run's account of the same forward and backward on meta
+    meta_model = LMModel(cfg, "meta")
+    meta_layers = params_lib.abstract(meta_model.param_meta()["layers"])
+    meta_mesh = make_host_mesh((S, 2), ("stage", "mdl"), device="meta")
+    meta_x = torch.empty(x.shape, device="meta")
+    account = {}
+    for remat in (True, False):
+        staged = tree_lib.tree_map(lambda a: a.detach().requires_grad_(True),
+                                   split_stages(meta_layers, S))
+
+        def meta_step():
+            y = pipeline_apply(meta_mesh, "stage", meta_model.layer_fn(),
+                               staged, meta_x, remat=remat)
+            torch.autograd.grad((y ** 2).sum(), tree_lib.leaves(staged))
+
+        account[remat] = dryrun.account(meta_step,
+                                        keep=tree_lib.leaves(staged))[1]
+
+    def grads_of(y, leaves):
+        loss = (y ** 2).sum()
+        return float(loss.detach()), torch.autograd.grad(loss, leaves)
+
+    def pipelined(remat=True):
+        staged = tree_lib.tree_map(lambda a: a.detach().requires_grad_(True),
+                                   split_stages(layers, S))
+        y = pipeline_apply(mesh, "stage", layer_fn, staged, x, remat=remat)
+        loss, g = grads_of(y, tree_lib.leaves(staged))
+        return y.detach(), loss, [a.reshape(L, *a.shape[2:]) for a in g]
+
+    def sequential():
+        live = tree_lib.tree_map(lambda a: a.detach().requires_grad_(True),
+                                 layers)
+        ys = []
+        for m in range(PIPE_MICRO):
+            h = x[m]
+            for i in range(L):
+                lp = tree_lib.tree_map(lambda a: a[i], live)
+                h = checkpoint(layer_fn, lp, h, use_reentrant=False)
+            ys.append(h)
+        y = torch.stack(ys)
+        loss, g = grads_of(y, tree_lib.leaves(live))
+        return y.detach(), loss, list(g)
+
+    (y_pp, _, g_pp), pp_ms = _timed_grad(torch, pipelined)
+    (y_sq, loss_sq, g_sq), sq_ms = _timed_grad(torch, sequential)
+    scale = float(y_sq.abs().max())
+    fwd_err = float((y_pp - y_sq).abs().max())
+    worst, worst_at = 0.0, "every leaf"
+    for (path, _), a, b in zip(tree_lib.flatten_with_paths(layers), g_pp,
+                               g_sq, strict=True):
+        share = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        if share > worst:
+            worst, worst_at = share, path
+    del g_sq, y_sq, y_pp
+    peak = {}
+    for remat in (True, False):
+        del g_pp
+        _free(torch)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        y, loss, g_pp = pipelined(remat)
+        torch.cuda.synchronize()
+        peak[remat] = torch.cuda.max_memory_allocated() - base
+        if remat:
+            loss_on = loss
+        else:
+            loss_off = loss
+    del g_pp, y
+    _free(torch)
+    remat_rel = abs(loss_on - loss_off) / abs(loss_on)
+    n_params = sum(a.numel() for a in tree_lib.leaves(layers))
+    msg = (f"8 pipeline_apply, {PIPE_ARCH} at published widths, {L} layers"
+           f" ({n_params / 1e9:.3f} B layer params, f32) in {S} stages on "
+           f"a ({S}, 2) host mesh of cuda:0, {PIPE_MICRO} microbatches of "
+           f"{PIPE_BATCH // PIPE_MICRO} x {PIPE_SEQ}: forward against the "
+           f"sequential loop max |diff| {fwd_err:.3g} of largest |y| "
+           f"{scale:.4g} (gate 1e-5 of it; "
+           f"{'bit-equal' if fwd_err == 0 else 'not bit-equal'}); gradients "
+           f"of sum(y^2) worst {worst:.2e} of the leaf's largest |g| at "
+           f"{worst_at} (gate 1e-4); loss remat on {loss_on!r} off "
+           f"{loss_off!r} (rel {remat_rel:.2e}, gate 1e-6, "
+           f"{'bit-equal' if loss_on == loss_off else 'not bit-equal'}); "
+           f"forward+backward {pp_ms:.1f} ms pipelined against {sq_ms:.1f} "
+           f"ms for the loop (host clock, median of 3, every slot on one "
+           f"card, both with remat; "
+           f"{account[True]['flops'] / pp_ms / 1e9:.2f} TFLOP/s of the "
+           f"{account[True]['flops'] / 1e12:.2f} TFLOP the dry run counts);"
+           f" peak memory above the state {peak[True] / 2**30:.2f} GiB "
+           f"with remat, {peak[False] / 2**30:.2f} GiB without (the dry "
+           f"run's saved bytes {account[True]['saved_bytes'] / 2**30:.2f} "
+           f"and {account[False]['saved_bytes'] / 2**30:.2f} GiB)")
+    if fwd_err > 1e-5 * scale or worst > 1e-4 or remat_rel > 1e-6:
+        fail(msg)
+    log(msg)
+
+    # K4 (f32) at every attention layer of the pipelined forward
+    flash_fn = model.layer_fn({"use_flash": True})
+    with torch.no_grad():
+        kernels.reset_launch_counts()
+        y_flash = pipeline_apply(mesh, "stage", flash_fn,
+                                 split_stages(layers, S), x)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        ys = []
+        for m in range(PIPE_MICRO):
+            h = x[m]
+            for i in range(L):
+                h = flash_fn(tree_lib.tree_map(lambda a: a[i], layers), h)
+            ys.append(h)
+        y_loop = torch.stack(ys)
+        y_plain = pipeline_apply(mesh, "stage", layer_fn,
+                                 split_stages(layers, S), x)
+    want = {k: 0 for k in launches}
+    want["flash_attention_padded"] = L * PIPE_MICRO
+    flash_err = float((y_flash - y_loop).abs().max())
+    plain_err = float((y_flash - y_plain).abs().max())
+    plain_scale = float(y_plain.abs().max())
+    msg = (f"8 pipelined forward with use_flash under no_grad: launches "
+           f"{launches} (want K4 {L} x {PIPE_MICRO} = {L * PIPE_MICRO}); "
+           f"against the same loop max |diff| {flash_err:.3g} (gate "
+           f"atol/rtol {K4_F32_TOL}), against the plain-attention pipeline "
+           f"{plain_err:.3g} of largest |y| {plain_scale:.4g} (gate "
+           f"{K4_F32_TOL} of it)")
+    if launches != want or plain_err > K4_F32_TOL * plain_scale or \
+            not torch.allclose(y_flash, y_loop, atol=K4_F32_TOL,
+                               rtol=K4_F32_TOL):
+        fail(msg)
+    log(msg)
+    del layers, x, y_flash, y_loop, y_plain
+    _free(torch)
+    return {f"pipeline forward ({PIPE_ARCH}, {L} layers in {S} stages, "
+            f"use_flash)": launches}
+
+
+def phase_dryrun(torch, facts: dict) -> None:
+    """9: the dry run (``launch/dryrun.run_cell``, on the meta device) of
+    phase 7c's cell, TinyLlama-1.1B as published at batch 4 x 512 on a
+    1x1 mesh, remat on and off, against what 7c placed and measured on
+    the card."""
+    import tempfile
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+
+    shape = ShapeConfig("lm_train_4x512", LM_TRAIN_SEQ, LM_TRAIN_BATCH,
+                        "train")
+    rec = {}
+    with tempfile.TemporaryDirectory() as d:
+        for remat in (True, False):
+            r = dryrun.run_cell("tinyllama-1.1b", shape, mesh="1x1",
+                                report_dir=d, verbose=False,
+                                cfg_overrides={"remat": remat})
+            if r["status"] != "ok":
+                fail(f"9: the dry run failed: {r.get('traceback')}")
+            rec[remat] = r
+    args = rec[True]["memory"]["argument_size_bytes"]
+    saved = {k: r["saved_bytes"] for k, r in rec.items()}
+    peak, held = facts["grad_peak"], facts["held"]
+    ratio = {k: saved[k] / peak["on" if k else "off"] for k in saved}
+    held_ratio = {k: saved[k] / held["on" if k else "off"] for k in saved}
+    bound = 8 * facts["n_params"] * facts["tokens"]
+    msg = (f"9 dry run of 7c's cell on meta: argument bytes "
+           f"{args} against {facts['state_bytes']} placed on the card "
+           f"(params, AdamW state, batch); saved for the backward remat off "
+           f"{saved[False] / 2**30:.3f} GiB = {ratio[False]:.3f} x the "
+           f"card's forward+backward peak above the state "
+           f"({peak['off'] / 2**30:.3f} GiB; gate 0.5-2) and "
+           f"{held_ratio[False]:.3f} x what its forward left for the "
+           f"backward ({held['off'] / 2**30:.3f} GiB); remat on "
+           f"{saved[True] / 2**30:.3f} GiB = {ratio[True]:.3f} x the peak "
+           f"({peak['on'] / 2**30:.3f} GiB), {held_ratio[True]:.3f} x held "
+           f"({held['on'] / 2**30:.3f} GiB); counted FLOPs "
+           f"{rec[True]['flops']:.4e} with remat, {rec[False]['flops']:.4e}"
+           f" without, against 7c's 8·N·T {bound:.4e}; aten ops "
+           f"{rec[True]['aten_ops']} with remat, {rec[False]['aten_ops']} "
+           f"without; dry run {rec[True]['run_s']} + {rec[False]['run_s']} s"
+           f" on the host")
+    if args != facts["state_bytes"] or saved[False] <= saved[True] \
+            or not 0.5 <= ratio[False] <= 2.0:
+        fail(msg)
+    log(msg)
 
 
 def main() -> None:
@@ -2711,15 +3003,18 @@ def main() -> None:
                    trained)
     timed("phase 7a, K4 and K5 refuse autograd", phase_lm_refusal, torch, np)
     timed("phase 7b, LM training parity", phase_lm_train_parity, torch)
-    lm_train = timed("phase 7c, LM training", phase_lm_training, torch, np,
-                     profile=profile)
+    lm_train, train_facts = timed("phase 7c, LM training",
+                                  phase_lm_training, torch, np,
+                                  profile=profile)
     timed("phase 7d, LM resume", phase_lm_resume, torch)
     timed("phase 7e, train_lm_100m", phase_lm_100m, torch)
+    pipe = timed("phase 8, pipeline", phase_pipeline, torch)
+    timed("phase 9, dry run", phase_dryrun, torch, train_facts)
     launches = {k: fcn[k] for k in FCN_KERNELS}
     lm = served_lm["zamba2-2.7b prefill"]
     launches.update({k: lm[k] for k in LM_KERNELS})
     by_path = {"pixellink_resnet50 forward": resnet, **zoo, **plans,
-               **fleet, **deploy, **served_lm, **lm_train}
+               **fleet, **deploy, **served_lm, **lm_train, **pipe}
 
     meta = {
         "winograd_tiles": ("src/repro_torch/csrc/winograd_conv.cu",

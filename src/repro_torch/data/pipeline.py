@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import tree as tree_lib
+from repro_torch.core.device import resolve_device
 
 
 class TokenDataset:
@@ -74,13 +75,28 @@ class TokenDataset:
             step += 1
 
 
+# the types ``jnp.asarray`` gives 64-bit arrays with JAX's default 32-bit
+# mode, which the reference's Prefetcher puts its batches through
+_NARROW = {np.dtype(np.int64): np.int32, np.dtype(np.uint64): np.uint32,
+           np.dtype(np.float64): np.float32}
+
+
+def _canonical(a: np.ndarray) -> np.ndarray:
+    narrow = _NARROW.get(a.dtype)
+    return a if narrow is None else a.astype(narrow)
+
+
 class Prefetcher:
     """Depth-``depth`` prefetch of a stream of trees of arrays, each leaf
-    put on ``device`` as a tensor."""
+    put on ``device`` as a tensor: the card unless the caller asks for
+    the CPU, as the reference puts each batch on its default device
+    (``core.device.resolve_device`` raises when there is no card).  A
+    64-bit array arrives in 32 bits, as ``jnp.asarray`` gives it (the
+    repeat stream's int64 tokens as int32)."""
 
-    def __init__(self, it: Iterator[Any], *, depth: int = 2, device="cpu"):
+    def __init__(self, it: Iterator[Any], *, depth: int = 2, device="cuda"):
         self._it = it
-        self._device = torch.device(device)
+        self._device = resolve_device(device)
         self._cuda = self._device.type == "cuda"
         self._stream = torch.cuda.Stream(self._device) if self._cuda \
             else None
@@ -91,8 +107,8 @@ class Prefetcher:
 
     def _transfer(self, item):
         """(tree on the device, the copy's event or None)."""
-        host = tree_lib.tree_map(lambda a: torch.as_tensor(np.asarray(a)),
-                                 item)
+        host = tree_lib.tree_map(
+            lambda a: torch.as_tensor(_canonical(np.asarray(a))), item)
         if not self._cuda:
             return tree_lib.tree_map(lambda t: t.to(self._device), host), None
         with torch.cuda.stream(self._stream):

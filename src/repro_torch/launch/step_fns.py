@@ -27,7 +27,10 @@ step's:
     semantics).
 
 With every slot on one device (``make_host_mesh(..., device=)``) the
-pieces and gathers are copies.  The serving steps run on the mesh's
+pieces are copies; a gather of a leaf stored in one piece copies
+nothing, so on a 1x1 mesh the gathered parameters are the stored pieces
+themselves, which is sound because the update is out of place (it
+builds new pieces and never writes into the old).  The serving steps run on the mesh's
 first slot with whole parameters (pieces are gathered there).
 """
 from __future__ import annotations
@@ -204,7 +207,8 @@ def build_train_step(cfg: ArchConfig, mesh, shape: ShapeConfig, *,
         arg_shardings=(param_sh, opt_sh, batch_sh),
         model=model,
         meta={"moment_dtype": md, "kind": "train",
-              "value_and_grad": value_and_grad},
+              "value_and_grad": value_and_grad,
+              "data_slots": len(data_slots)},
     )
 
 

@@ -69,6 +69,13 @@ class _LowPrecisionMatmul(torch.autograd.Function):
 low_precision_matmul = _LowPrecisionMatmul.apply
 
 
+def card_route(x: torch.Tensor) -> bool:
+    """Whether ``x`` takes the card's route: on the card, and on the meta
+    device, where the dry run (``launch/dryrun.py``) accounts for what
+    the card would run and save."""
+    return x.device.type in ("cuda", "meta")
+
+
 def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (..., K) @ w (K, N) with w cast to x's type, f32 accumulation
     and an f32 result.  Products of bf16 values are exact in f32, so on
@@ -79,7 +86,7 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     x2 = x.reshape(-1, x.shape[-1])
     if x.dtype == F32:
         y = x2 @ w
-    elif x.is_cuda:
+    elif card_route(x):
         y = low_precision_matmul(x2, w)
     else:
         y = x2.to(F32) @ w.to(F32)

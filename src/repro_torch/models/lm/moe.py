@@ -22,7 +22,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
-from .layers import _maybe_bfp, low_precision_matmul
+from .layers import _maybe_bfp, card_route, low_precision_matmul
 from .params import ParamMeta
 
 F32 = torch.float32
@@ -51,10 +51,14 @@ def moe_meta(d: int, f: int, n_experts: int, dtype,
 
 def _ranks_by_sort(expert_of: torch.Tensor, n_experts: int) -> torch.Tensor:
     """Rank of each element within its expert (int32), by a stable sort:
-    O(T*k)."""
+    O(T*k).  The counts per expert are a scatter-add, as in the
+    reference, which also runs on the meta device (``bincount`` does
+    not)."""
     n = expert_of.shape[0]
     order = torch.argsort(expert_of, stable=True)
-    counts = torch.bincount(expert_of, minlength=n_experts)
+    counts = torch.zeros(n_experts, dtype=expert_of.dtype,
+                         device=expert_of.device).index_add_(
+        0, expert_of, torch.ones_like(expert_of))
     starts = torch.cumsum(counts, 0) - counts          # exclusive cumsum
     rank_sorted = (torch.arange(n, device=expert_of.device)
                    - starts[expert_of[order]])
@@ -111,7 +115,7 @@ def _expert_matmul(a: torch.Tensor, w: torch.Tensor,
     w = w.to(dtype)
     if a.dtype == w.dtype == F32:
         return torch.bmm(a, w)
-    if a.is_cuda and a.dtype == w.dtype:
+    if card_route(a) and a.dtype == w.dtype:
         return low_precision_matmul(a, w)
     step = max(1, WIDEN_BYTES // (w[0].numel() * 4))
     return torch.cat([torch.bmm(a[e:e + step].to(F32),

@@ -4,8 +4,9 @@ together.
 Modules declare :class:`ParamMeta` trees (nested dicts); :func:`materialize`
 draws real tensors from a ``torch.Generator``, :func:`params_from_numpy`
 carries a reference parameter tree across leaf for leaf (an optimizer
-state too), :func:`abstract` gives meta-device stand-ins, and counts read
-shapes only, so no large model is ever allocated to be counted.
+state too), :func:`abstract` gives meta-device stand-ins, and counts
+(:func:`count_params`, :func:`param_bytes`) read shapes only, so no
+large model is ever allocated to be counted.
 
 Sharding is declared as axis preferences and resolved against a mesh
 with divisibility checks (:func:`best_spec`): a weight (d_model, d_ff)
@@ -24,6 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import bfp as bfp_lib
+from repro_torch.core import tree as tree_lib
 from repro_torch.runtime.sharding import (Sharding, Spec, entry_axes,
                                           mesh_axis_sizes)
 
@@ -75,10 +77,6 @@ _DRAW_WHOLE = 1 << 31     # values drawn in one f32 temporary at most
 
 def _draw(m: ParamMeta, generator: torch.Generator) -> torch.Tensor:
     dt = as_dtype(m.dtype)
-    if m.init == "zeros":
-        return torch.zeros(m.shape, dtype=dt, device=generator.device)
-    if m.init == "ones":
-        return torch.ones(m.shape, dtype=dt, device=generator.device)
     if m.init == "normal":
         scale = m.scale
     elif m.init == "scaled":      # fan-in scaled
@@ -104,12 +102,19 @@ def _draw(m: ParamMeta, generator: torch.Generator) -> torch.Tensor:
 def materialize(tree, generator: Optional[torch.Generator] = None,
                 device="cpu"):
     """Real tensors for a ParamMeta tree, drawn from ``generator`` on its
-    own device and moved to ``device`` (zeros and ones need none)."""
+    own device and moved to ``device``.  Zeros and ones are made on
+    ``device`` and need no generator, so a cache (all zeros) also
+    materializes on the meta device; without ``generator`` a draw seeds
+    one at 0 on ``device``."""
     device = torch.device(device)
-    if generator is None:
-        generator = torch.Generator(device=device).manual_seed(0)
 
     def one(m: ParamMeta) -> torch.Tensor:
+        nonlocal generator
+        if m.init in ("zeros", "ones"):
+            fill = torch.zeros if m.init == "zeros" else torch.ones
+            return fill(m.shape, dtype=as_dtype(m.dtype), device=device)
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(0)
         return _draw(m, generator).to(device)
 
     return tree_map_meta(one, tree)
@@ -142,6 +147,26 @@ def abstract(tree):
     return tree_map_meta(
         lambda m: torch.empty(m.shape, dtype=as_dtype(m.dtype),
                               device="meta"), tree)
+
+
+def _shape_leaves(tree):
+    """(shape, dtype) of every leaf of a ParamMeta tree or a tree of
+    (meta) tensors; a BFP leaf gives its mantissa and its exponent, as
+    the reference's tree leaves do."""
+    for leaf in tree_lib.leaves(tree):
+        yield tuple(leaf.shape), as_dtype(leaf.dtype)
+
+
+def count_params(tree) -> int:
+    """Values in a ParamMeta or tensor tree, counted from shapes."""
+    return sum(math.prod(shape) for shape, _ in _shape_leaves(tree))
+
+
+def param_bytes(tree) -> int:
+    """Bytes of a ParamMeta or tensor tree, counted from shapes and
+    types (nothing is read: meta tensors count as real ones)."""
+    return sum(math.prod(shape) * dt.itemsize
+               for shape, dt in _shape_leaves(tree))
 
 
 def best_spec(meta: ParamMeta, mesh_shape: Dict[str, int]) -> Spec:

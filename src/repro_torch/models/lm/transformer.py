@@ -338,16 +338,57 @@ class LMModel:
 
     def _layer(self, fn, stacked_params, i, h, ctx, stacked_cache=None):
         """Run layer ``i`` of a stacked block through its stream."""
+        cache = None if stacked_cache is None else _index(stacked_cache, i)
+        y, cache = self._one_layer(fn, _index(stacked_params, i), h, ctx,
+                                   cache)
+        if stacked_cache is not None:
+            _write_back(stacked_cache, i, cache)
+        return y
+
+    @staticmethod
+    def _one_layer(fn, layer_params, h, ctx, cache=None):
+        """(y, the layer's updated cache or None) of one layer's params."""
         step_ctx = dict(ctx)
         step_ctx["cache_len"] = ctx.get("cache_len", 0)
         if step_ctx.get("shard") is not None and h.dim() == 3:
             h = step_ctx["shard"](h, "boundary")   # the saved residual
-        if stacked_cache is not None:
-            step_ctx["cache"] = _index(stacked_cache, i)
-        y, step_ctx = fn(_index(stacked_params, i), h, step_ctx)
-        if stacked_cache is not None:
-            _write_back(stacked_cache, i, step_ctx["cache"])
-        return y
+        if cache is not None:
+            step_ctx["cache"] = cache
+        y, step_ctx = fn(layer_params, h, step_ctx)
+        return y, step_ctx.get("cache")
+
+    def _full_ctx(self, positions, ctx_extra):
+        """The context of a full-sequence pass at ``positions``, with
+        ``ctx_extra`` over it."""
+        ctx: Dict[str, Any] = {
+            "positions": positions, "mode": "full",
+            "compute_dtype": as_dtype(self.cfg.compute_dtype),
+        }
+        if ctx_extra:
+            ctx.update(ctx_extra)
+        return ctx
+
+    def layer_fn(self, ctx_extra: Optional[Dict[str, Any]] = None):
+        """``fn(one layer's params, h) -> h``: one layer of the stack as
+        ``forward`` runs it in train mode (positions 0..L-1 of ``h``), the
+        ``layer_fn`` that ``runtime.pipeline.pipeline_apply`` runs over a
+        stage's layers.  ``ctx_extra`` as in ``forward`` (``use_flash``;
+        a ``shard`` hint applies at each layer boundary, as in ``forward``,
+        and its hint on the embedding is the caller's).  Only a stack of uniform self-contained layers pipelines: not the
+        hybrid's (its shared block sits between groups) nor the
+        encoder-decoder's (its layers read the encoder's memory)."""
+        if self.block_kind not in ("attn", "ssm"):
+            raise ValueError(f"{self.cfg.name}: a {self.block_kind} stack "
+                             f"is not a stack of uniform layers")
+        fn = self.block.fn()
+
+        def one(layer_params, h):
+            positions = torch.arange(h.shape[1], dtype=torch.int32,
+                                     device=h.device)[None, :]
+            return self._one_layer(fn, layer_params, h,
+                                   self._full_ctx(positions, ctx_extra))[0]
+
+        return one
 
     def _layer_remat(self, remat: bool, *args):
         """:meth:`_layer`, recomputed in the backward when ``remat``."""
@@ -432,12 +473,7 @@ class LMModel:
         if positions is None:
             positions = torch.arange(Lseq, dtype=torch.int32,
                                      device=x.device)[None, :]
-        ctx: Dict[str, Any] = {
-            "positions": positions, "mode": "full",
-            "compute_dtype": as_dtype(self.cfg.compute_dtype),
-        }
-        if ctx_extra:
-            ctx.update(ctx_extra)
+        ctx = self._full_ctx(positions, ctx_extra)
         if ctx.get("shard") is not None:
             x = ctx["shard"](x, "bld")
         cache = None

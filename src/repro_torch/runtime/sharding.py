@@ -247,14 +247,15 @@ def split(x: torch.Tensor, spec: Spec, mesh) -> List[torch.Tensor]:
 def gather(pieces: List[torch.Tensor], spec: Spec, mesh,
            device) -> torch.Tensor:
     """The whole tensor from its :func:`split` pieces, on ``device``;
-    differentiable."""
+    differentiable.  A dim split over axes of size 1 is not copied: a
+    one-piece tensor already on ``device`` comes back as it is."""
     sizes = mesh_axis_sizes(mesh)
     flat = [p.to(device) for p in pieces]
     # row-major pieces: the last split dim's pieces lie next to each other
     for d in reversed(range(len(spec))):
         axes = entry_axes(spec[d])
-        if axes:
-            n = math.prod(sizes[a] for a in axes)
+        n = math.prod(sizes[a] for a in axes)
+        if n > 1:
             flat = [torch.cat(flat[i:i + n], dim=d)
                     for i in range(0, len(flat), n)]
     return flat[0]

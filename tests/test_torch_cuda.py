@@ -1074,3 +1074,72 @@ class TestOnCard:
                 # a read on the consumer's stream, before any sync
                 assert int((b[k].long().sum()).item()) == int(want[k].sum())
                 np.testing.assert_array_equal(b[k].cpu().numpy(), want[k])
+
+    @pytest.mark.parametrize("S,remat", [(4, True), (2, False)])
+    def test_pipeline_on_card_equals_cpu(self, S, remat):
+        """pipeline_apply of an InternLM2 smoke stack (8 layers, f32) on a
+        (S, 2) host mesh of cuda:0 slots against the same call on "cpu"
+        slots: forward within 1e-5 and the gradients of sum(y^2) w.r.t.
+        the staged params and x within 1e-4 of each largest value."""
+        import dataclasses
+
+        dev = _cuda()
+        from repro_torch import configs
+        from repro_torch.core import tree as tree_lib
+        from repro_torch.launch.mesh import make_host_mesh
+        from repro_torch.models.lm import LMModel
+        from repro_torch.runtime.pipeline import (microbatch, pipeline_apply,
+                                                  split_stages)
+
+        cfg = dataclasses.replace(configs.get_smoke_config("internlm2-1.8b"),
+                                  n_layers=8)
+        layers = LMModel(cfg, "cpu").init_params(
+            torch.Generator().manual_seed(0))["layers"]
+        x = torch.from_numpy(_normal(3, (8, 16, cfg.d_model)))
+        out = {}
+        for d in (dev, "cpu"):
+            staged = tree_lib.tree_map(
+                lambda a: a.to(d).requires_grad_(True),
+                split_stages(layers, S))
+            xd = microbatch(x.to(d), 4).requires_grad_(True)
+            mesh = make_host_mesh((S, 2), ("stage", "mdl"), device=d)
+            y = pipeline_apply(mesh, "stage", LMModel(cfg, d).layer_fn(),
+                               staged, xd, remat=remat)
+            assert y.device.type == torch.device(d).type
+            g = torch.autograd.grad((y ** 2).sum(),
+                                    tree_lib.leaves(staged) + [xd])
+            out[str(d)] = [y] + list(g)
+        for i, (a, b) in enumerate(zip(out[str(dev)], out["cpu"],
+                                       strict=True)):
+            tol = (1e-5 if i == 0 else 1e-4) * float(b.detach().abs().max())
+            assert float((a.detach().cpu() - b.detach()).abs().max()) <= tol
+
+    def test_dryrun_argument_bytes_equal_placed_state(self, tmp_path):
+        """The dry run's argument bytes of a TinyLlama smoke train cell on
+        a 1x1 mesh equal the nbytes of the params, AdamW state and batch
+        that build_train_step's arguments place on the card."""
+        dev = _cuda()
+        from repro_torch import configs
+        from repro_torch.configs.base import ShapeConfig
+        from repro_torch.core import tree as tree_lib
+        from repro_torch.launch import dryrun, step_fns
+        from repro_torch.launch.mesh import make_host_mesh
+        from repro_torch.models.lm import LMModel
+        from repro_torch.optim import adamw
+
+        cfg = configs.get_smoke_config("tinyllama-1.1b")
+        shape = ShapeConfig("t", 32, 4, "train")
+        rec = dryrun.run_cell("tinyllama-1.1b", shape, smoke=True,
+                              report_dir=str(tmp_path), verbose=False)
+        assert rec["status"] == "ok", rec.get("traceback")
+        mesh = make_host_mesh((1, 1), ("data", "model"), device=dev)
+        built = step_fns.build_train_step(cfg, mesh, shape)
+        params = LMModel(cfg, dev).init_params(
+            torch.Generator(device=dev).manual_seed(0))
+        opt = adamw(1e-3, moment_dtype=built.meta["moment_dtype"])[0](params)
+        batch = {k: torch.zeros(v.shape, dtype=v.dtype, device=dev)
+                 for k, v in built.abstract_args[2].items()}
+        placed = tree_lib.leaves((params, opt, batch))
+        assert all(t.device.type == "cuda" for t in placed)
+        assert rec["memory"]["argument_size_bytes"] == sum(
+            t.numel() * t.element_size() for t in placed)

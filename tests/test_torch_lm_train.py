@@ -235,7 +235,7 @@ class TestData:
 
     def test_prefetcher_yields_all(self):
         ds = TokenDataset(50, 8, 2, seed=0)
-        got = list(Prefetcher(ds.batch(i) for i in range(5)))
+        got = list(Prefetcher((ds.batch(i) for i in range(5)), device="cpu"))
         assert len(got) == 5
         np.testing.assert_array_equal(np.asarray(got[3]["tokens"]),
                                       ds.batch(3)["tokens"])
