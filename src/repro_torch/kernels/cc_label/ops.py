@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import build, refuse_autograd
 from repro_torch.models.fcn import postprocess as pp
+from repro_torch.runtime.telemetry import SPANS
 
 MAX_TILE = 32
 
@@ -114,8 +115,9 @@ def cc_label_tiled(score: torch.Tensor, links: torch.Tensor,
         cfg = (0, 0) * (a.ndim - 3) + (0, pw, 0, ph)
         return F.pad(a, cfg).contiguous()
 
-    local = local_spread_converge(pad(pp.cc_init_labels(pos)), pad(pos),
-                                     pad(lnk), th=bh, tw=bw)
+    with SPANS.span("cc.local"):
+        local = local_spread_converge(pad(pp.cc_init_labels(pos)), pad(pos),
+                                      pad(lnk), th=bh, tw=bw)
     labels, iters, converged = pp.merge_rounds(
         local[:, :h, :w], pos, lnk, max_iters)
     if return_stats:

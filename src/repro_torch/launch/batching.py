@@ -40,6 +40,8 @@ from collections import OrderedDict, deque
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, Callable, Dict, Hashable, List, Optional
 
+from repro_torch.runtime.telemetry import SPANS, Span
+
 
 class QueueFull(RuntimeError):
     """submit() rejected: the scheduler's pending queue is at
@@ -169,6 +171,7 @@ class LRUCache:
         self._lock = threading.Lock()
         self.hits = 0
         self.misses = 0
+        self.evictions = 0
 
     def get(self, key: Hashable) -> Optional[Any]:
         with self._lock:
@@ -179,11 +182,14 @@ class LRUCache:
             self.misses += 1
             return None
 
-    def put(self, key: Hashable, value: Any, *, weight: int = 0) -> None:
+    def put(self, key: Hashable, value: Any, *, weight: int = 0) -> int:
+        """Store ``key``; returns how many entries it evicted (also
+        summed in ``evictions``)."""
         with self._lock:
             self._d[key] = value
             self._d.move_to_end(key)
             self._w[key] = int(weight)
+            n = len(self._d)
             while self.capacity > 0 and len(self._d) > self.capacity:
                 k, _ = self._d.popitem(last=False)
                 self._w.pop(k, None)
@@ -191,6 +197,9 @@ class LRUCache:
                    and sum(self._w.values()) > self.byte_budget):
                 k, _ = self._d.popitem(last=False)
                 self._w.pop(k, None)
+            evicted = n - len(self._d)
+            self.evictions += evicted
+            return evicted
 
     @property
     def weight_bytes(self) -> int:
@@ -211,6 +220,14 @@ class _Item:
     payload: Any
     future: Future
     t_submit: float
+    span: Optional[Span] = None      # the request's root span
+    form: Optional[Span] = None      # its open ``mb.form`` wait
+
+
+def _ids(batch: Optional[Span]) -> Dict[str, Any]:
+    """The batch and request ids a batch's spans carry."""
+    return {} if batch is None else {"batch": batch.batch,
+                                     "reqs": batch.reqs}
 
 
 class MicroBatcher:
@@ -220,14 +237,24 @@ class MicroBatcher:
     ``stop()`` drains every pending request before returning.
 
     Threads: ``mb-sched`` forms batches, ``mb-dispatch`` runs
-    ``infer_fn`` (it queues work on the card and returns), ``mb-complete``
-    runs ``finalize_fn`` on the pending result (the stage that actually
-    blocks on the device), and a small ``mb-post`` pool scatters per-item
-    results.  At most ``inflight`` dispatched-but-unfinalized batches
-    queue between dispatch and completion (plus the one each stage is
+    ``infer_fn`` (it queues work on the card; ``STDService``'s engine
+    also reads the CC rounds' convergence flags, which wait for the
+    forward), ``mb-complete`` runs ``finalize_fn`` on the pending result
+    (the wait for the rest and the copies to the host), and a small
+    ``mb-post`` pool scatters per-item results.  At most ``inflight``
+    dispatched-but-unfinalized batches queue between dispatch and
+    completion (plus the one each stage is
     holding), which bounds device memory while letting H2D/compute/D2H
     of consecutive batches overlap.  ``inflight=0`` finalizes inline in
     the dispatch thread — the fully serialized legacy path.
+
+    While a profile is active (``runtime/telemetry.SPANS``) each stage
+    is a span: per request ``mb.form`` (submit to popped into a batch)
+    and ``mb.post``; per batch ``mb.handoff`` (popped to picked up by
+    the dispatch thread), ``mb.dispatch``, ``mb.inflight`` (dispatch end
+    to picked up by the completion thread) and ``mb.complete``.  A
+    request's root span, passed to :meth:`submit`, ends when its future
+    resolves.
     """
 
     def __init__(
@@ -307,7 +334,6 @@ class MicroBatcher:
             "batch_items": 0,         # running sum of formed-batch sizes
             "rejected": 0,            # admission-control sheds
             "finalize_short": 0,      # finalize arity errors (stranded futures)
-            "item_latency_s": [],     # submit -> future resolved
             "pending_peak": 0,        # max queued items ever observed
             "inflight_peak": 0,       # max dispatched-but-unfinalized
             "dispatch_busy_s": 0.0,   # real time inside infer_fn
@@ -410,11 +436,13 @@ class MicroBatcher:
         return out
 
     # -- request side ----------------------------------------------------------
-    def submit(self, key: Hashable, payload: Any) -> Future:
+    def submit(self, key: Hashable, payload: Any,
+               span: Optional[Span] = None) -> Future:
         """Enqueue one request.  At ``max_pending`` queued items the
         admission policy applies: "reject" raises :class:`QueueFull`
         immediately (load shedding), "block" waits for the scheduler to
-        drain a batch (backpressure on the caller thread)."""
+        drain a batch (backpressure on the caller thread).  ``span``: the
+        request's root span (``SPANS.request``), ended on resolve."""
         fut: Future = Future()
         with self._cond:
             if self._stop or not self._running:
@@ -431,7 +459,8 @@ class MicroBatcher:
                 self._cond.wait()
                 if self._stop or not self._running:
                     raise RuntimeError("MicroBatcher is not running")
-            item = _Item(key, payload, fut, self.clock())
+            item = _Item(key, payload, fut, self.clock(), span,
+                         SPANS.begin("mb.form", parent=span, scoped=False))
             self._pending.setdefault(key, deque()).append(item)
             self._n_pending += 1
             with self._stats_lock:
@@ -507,9 +536,27 @@ class MicroBatcher:
     def _sched_loop(self):
         while True:
             batch = self._next_batch()
+            if batch is not None:
+                batch = self._formed(*batch)
             self._infer_q.put(batch)          # None = drained sentinel
             if batch is None:
                 return
+
+    @staticmethod
+    def _formed(key, reason, items):
+        """A popped batch with its ``mb.handoff`` span (None with the gate
+        off): the items' ``mb.form`` waits end where it begins."""
+        if not SPANS.on():
+            return key, reason, items, None
+        t = time.perf_counter_ns()
+        for it in items:
+            SPANS.end(it.form, t)
+        handoff = SPANS.batch("mb.handoff", [it.span.req for it in items
+                                             if it.span is not None], t)
+        for it in items:
+            if it.span is not None:
+                it.span.batch = handoff.batch
+        return key, reason, items, handoff
 
     # -- dispatch stage --------------------------------------------------------
     def _dispatch_loop(self):
@@ -523,7 +570,7 @@ class MicroBatcher:
                 if self._complete_t is not None:
                     self._done_q.put(None)
                 return
-            key, reason, items = got
+            key, reason, items, handoff = got
             with self._stats_lock:
                 self.stats[f"flush_{reason}"] += 1
                 self.stats["batch_items"] += len(items)
@@ -534,15 +581,19 @@ class MicroBatcher:
             if self.book is not None:
                 self.book.observe("mb_batch_occupancy",
                                   len(items) / self.max_batch)
-            t0 = time.perf_counter()
+            t0 = time.perf_counter_ns()
+            SPANS.end(handoff, t0)
+            span = SPANS.begin("mb.dispatch", t0, **_ids(handoff))
             try:
                 raw = self.infer_fn(key, [it.payload for it in items])
             except Exception as e:
                 for it in items:
-                    it.future.set_exception(e)
+                    self._fail(it, e)
                 continue
             finally:
-                dt = time.perf_counter() - t0
+                t1 = time.perf_counter_ns()
+                SPANS.end(span, t1)
+                dt = (t1 - t0) * 1e-9
                 with self._stats_lock:
                     self.stats["dispatch_busy_s"] += dt
                 if self.book is not None:
@@ -552,9 +603,12 @@ class MicroBatcher:
                 if self._in_flight > self.stats["inflight_peak"]:
                     self.stats["inflight_peak"] = self._in_flight
             if self._complete_t is None:
-                self._complete_one(key, items, raw)
+                self._complete_one(key, items, raw, handoff)
             else:
-                self._done_q.put((key, items, raw))   # bounded: backpressure
+                inflight = SPANS.begin("mb.inflight", t1, scoped=False,
+                                       **_ids(handoff))
+                # bounded: backpressure
+                self._done_q.put((key, items, raw, handoff, inflight))
 
     # -- completion stage ------------------------------------------------------
     def _complete_loop(self):
@@ -564,18 +618,22 @@ class MicroBatcher:
                 return
             self._complete_one(*got)
 
-    def _complete_one(self, key, items, raw):
-        t0 = time.perf_counter()
+    def _complete_one(self, key, items, raw, handoff=None, inflight=None):
+        t0 = time.perf_counter_ns()
+        SPANS.end(inflight, t0)
+        span = SPANS.begin("mb.complete", t0, **_ids(handoff))
         try:
             outs = raw if self.finalize_fn is None \
                 else self.finalize_fn(key, raw)
             n_out = len(outs)
         except Exception as e:
             for it in items:
-                it.future.set_exception(e)
+                self._fail(it, e)
             return
         finally:
-            dt = time.perf_counter() - t0
+            t1 = time.perf_counter_ns()
+            SPANS.end(span, t1)
+            dt = (t1 - t0) * 1e-9
             with self._stats_lock:
                 self._in_flight -= 1
                 self.stats["complete_busy_s"] += dt
@@ -596,7 +654,7 @@ class MicroBatcher:
             if self.book is not None:
                 self.book.incr("mb_finalize_short")
             for it in items[n_out:]:
-                it.future.set_exception(err)
+                self._fail(it, err)
             items = items[:n_out]
         for it, out in zip(items, outs):
             if self.post_fn is None:
@@ -605,20 +663,28 @@ class MicroBatcher:
                 self._post_pool.submit(self._post_one, it, out)
 
     def _post_one(self, item: _Item, out: Any):
-        t0 = time.perf_counter()
+        t0 = time.perf_counter_ns()
+        span = SPANS.begin("mb.post", t0, parent=item.span)
         try:
-            self._resolve(item, self.post_fn(item.payload, out))
+            result = self.post_fn(item.payload, out)
         except Exception as e:
-            item.future.set_exception(e)
+            self._fail(item, e)
+            return
         finally:
+            t1 = time.perf_counter_ns()
+            SPANS.end(span, t1)
             with self._stats_lock:
-                self.stats["post_busy_s"] += time.perf_counter() - t0
+                self.stats["post_busy_s"] += (t1 - t0) * 1e-9
+        self._resolve(item, result)
 
-    def _resolve(self, item: _Item, result: Any):
-        # sample lands BEFORE set_result, so anything observable through
-        # result() implies its latency sample is already readable
-        with self._stats_lock:
-            self.stats["item_latency_s"].append(
-                self.clock() - item.t_submit
-            )
+    @staticmethod
+    def _resolve(item: _Item, result: Any):
+        # the request's span ends BEFORE set_result, so a caller that
+        # reads result() finds it recorded
+        SPANS.end(item.span)
         item.future.set_result(result)
+
+    @staticmethod
+    def _fail(item: _Item, err: BaseException):
+        SPANS.end(item.span)
+        item.future.set_exception(err)

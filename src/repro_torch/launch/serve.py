@@ -35,8 +35,13 @@ convergence flag per round (``postprocess.merge_rounds``).
 
 Every layer writes into one ``runtime/telemetry.CostBook``: engine call
 walls (``stage="dispatch"``), dispatch-through-copy walls (``"step"``),
-per-image box walls (``"postprocess"``) and the scheduler's series;
-:meth:`metrics_snapshot` and :meth:`metrics_prometheus` export it.  With
+per-image box walls (``"postprocess"``), the scheduler's series and the
+engine counters; :meth:`metrics_snapshot` and :meth:`metrics_prometheus`
+export it.  While a profile is active, :meth:`submit` opens each
+request's ``std.request`` span in ``runtime/telemetry.SPANS`` (with
+``std.preprocess``); the batcher's and engine's spans carry its id, and
+the step and box walls are ``std.step`` and ``std.postprocess`` spans
+read off the same clocks.  With
 ``activation_budget_bytes`` each bucket's batch cap is how many planned
 per-image activation peaks (``core.memplan``) fit the budget, and
 ``engine_cache_bytes`` makes the engine LRU evict by planned bytes.
@@ -87,7 +92,7 @@ from repro_torch.runtime.executor import (
 )
 from repro_torch.runtime.pipeline import HostPipeline
 from repro_torch.runtime.planner import Planner, features_for_program
-from repro_torch.runtime.telemetry import CostBook, prometheus_text
+from repro_torch.runtime.telemetry import SPANS, CostBook, prometheus_text
 
 MAX_WIDTH = 4096          # the paper's width limit
 
@@ -338,8 +343,9 @@ class STDService:
         device tuple ``(*payload, converged)`` of the head (``(labels,
         converged)`` for the CC heads), with the compact ``(rows,
         counts)`` boxes appended on the device route, and the meta ``(hw,
-        batch, kind, t0, event)`` the completion path takes (``event`` is
-        None off the card)."""
+        batch, kind, t0, event, step)`` the completion path takes
+        (``event`` is None off the card, ``step`` the open ``std.step``
+        span or None)."""
         hw = tuple(stack.shape[1:3])
         n_live = len(valid_hws)
         b = round_batch(n_live, self._bucket_cap(hw), self.batch_round)
@@ -356,7 +362,8 @@ class STDService:
         fn = self.factory.plan_fn(hw, b, plan, self.precision,
                                   self.model_name)
         params = self.factory.params(hw, self.precision, self.model_name)
-        t0 = time.perf_counter()
+        t0 = time.perf_counter_ns()
+        step = SPANS.begin("std.step", t0, scoped=False)
         pending = fn(params, self._to_device(stack), self._to_device(valid_q))
         if self.postprocess_mode == "device":
             # labels are already valid-masked, so padding adds no
@@ -368,7 +375,7 @@ class STDService:
         if self.device.type == "cuda":
             event = torch.cuda.Event()
             event.record()
-        return pending, (hw, b, plan_kind(plan), t0, event)
+        return pending, (hw, b, plan_kind(plan), t0, event, step)
 
     def _to_host(self, tensors, event) -> List[np.ndarray]:
         """Copy device tensors to the host once the batch's event has
@@ -380,9 +387,12 @@ class STDService:
             return [t.cpu().numpy() for t in tensors]
 
     def _record_step(self, meta) -> None:
-        """One batch's dispatch-through-copy wall into the book."""
-        hw, b, kind, t0, _ = meta
-        self.book.record_step(hw, b, kind, time.perf_counter() - t0,
+        """One batch's dispatch-through-copy wall into the book, and its
+        ``std.step`` span."""
+        hw, b, kind, t0, _, step = meta
+        t1 = time.perf_counter_ns()
+        SPANS.end(step, t1)
+        self.book.record_step(hw, b, kind, (t1 - t0) * 1e-9,
                               precision=self.precision,
                               model=self.model_name)
 
@@ -455,16 +465,20 @@ class STDService:
         wall lands in the book under ``stage="postprocess"``, keyed by the
         bucket (from the payload's plane when ``bucket_hw`` is not given;
         device-compact rows carry none) and the decode kind."""
-        t0 = time.perf_counter()
-        boxes, kind = self.head.decode(payload, valid_hw)
+        t0 = time.perf_counter_ns()
+        span = SPANS.begin("std.postprocess", t0)
+        try:
+            boxes, kind = self.head.decode(payload, valid_hw)
+        finally:
+            t1 = time.perf_counter_ns()
+            SPANS.end(span, t1)
         if bucket_hw is None:
             plane = self.head.payload_plane(payload)
             if plane is None:
                 raise ValueError("device-compact payloads carry no plane "
                                  "shape; pass bucket_hw")
             bucket_hw = (plane[0] * 4, plane[1] * 4)
-        self.book.record_step(tuple(bucket_hw), 1, kind,
-                              time.perf_counter() - t0,
+        self.book.record_step(tuple(bucket_hw), 1, kind, (t1 - t0) * 1e-9,
                               stage="postprocess", model=self.model_name)
         if transposed:
             for b in boxes:
@@ -619,8 +633,10 @@ class STDService:
         on the bucket's micro-batch."""
         if self._batcher is None:
             raise RuntimeError("call start_batched() first")
-        x, valid, tr = self.preprocess(img)
-        return self._batcher.submit(x.shape[:2], (x, valid, tr))
+        root = SPANS.request("std.request")
+        with SPANS.span("std.preprocess", root):
+            x, valid, tr = self.preprocess(img)
+        return self._batcher.submit(x.shape[:2], (x, valid, tr), span=root)
 
     def serve_batched(self, images: List[np.ndarray], *,
                       pre_workers: int = 4) -> List[List[Dict]]:

@@ -25,6 +25,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.runtime.telemetry import SPANS
+
 # neighbor offsets, PixelLink's 8-connectivity, order: (dy, dx)
 NEIGHBORS: Tuple[Tuple[int, int], ...] = (
     (-1, -1), (-1, 0), (-1, 1),
@@ -94,22 +96,34 @@ def merge_rounds(labels: torch.Tensor, pos: torch.Tensor, lnk: torch.Tensor,
                  max_iters: int, hop: str = "log"):
     """Iterate spread (+ jump) on (N, H, W) maps until every image stops
     changing or has run ``max_iters`` rounds; an image stops updating as
-    soon as it converges.  Returns ``(labels, iters, converged)``."""
+    soon as it converges.  Returns ``(labels, iters, converged)``.
+
+    Each round starts with a host read of the convergence flags, which
+    waits for the device: a ``cc.merge`` span with one ``cc.sync`` span
+    per read, and the counts ``cc.rounds`` (the largest per-image round
+    count) and ``cc.syncs`` (rounds + 1) in ``SPANS``' tally."""
     n = labels.shape[0]
     dev = labels.device
     changed = torch.ones(n, dtype=torch.bool, device=dev)
     iters = torch.zeros(n, dtype=torch.int32, device=dev)
-    while True:
-        active = changed & (iters < max_iters)
-        if not bool(active.any()):
-            break
-        new = cc_spread(labels, pos, lnk)
-        if hop == "log":
-            new = cc_pointer_jump(new, pos)
-        delta = (new != labels).flatten(1).any(dim=1)
-        labels = torch.where(active[:, None, None], new, labels)
-        changed = torch.where(active, delta, changed)
-        iters = iters + active.to(torch.int32)
+    rounds = 0
+    with SPANS.span("cc.merge"):
+        while True:
+            active = changed & (iters < max_iters)
+            with SPANS.span("cc.sync"):
+                go = bool(active.any())
+            if not go:
+                break
+            new = cc_spread(labels, pos, lnk)
+            if hop == "log":
+                new = cc_pointer_jump(new, pos)
+            delta = (new != labels).flatten(1).any(dim=1)
+            labels = torch.where(active[:, None, None], new, labels)
+            changed = torch.where(active, delta, changed)
+            iters = iters + active.to(torch.int32)
+            rounds += 1
+    SPANS.count("cc.rounds", rounds)
+    SPANS.count("cc.syncs", rounds + 1)
     return labels, iters, ~changed
 
 

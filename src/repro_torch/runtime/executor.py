@@ -55,9 +55,13 @@ copies them to each slot's device once per parameter set.
 On the card the CC tail runs K3 (``kernels/cc_label``), on the CPU the
 plain ``postprocess.cc_label_batched``.  :meth:`EngineFactory.boxes_fn`
 is the device box tail that ``postprocess="device"`` serving runs on the
-engine's labels.  With a telemetry ``book`` every engine is wrapped to
-record its call wall under ``stage="dispatch"``; the engine LRU can
-evict by planned bytes (``engine_bytes_budget``).
+engine's labels.  Every engine call is an ``engine.run`` span of
+``runtime/telemetry.SPANS`` (``engine.forward``, ``cc.local``,
+``cc.merge`` and its ``cc.sync`` reads inside), and a miss's build an
+``engine.build`` span; with a telemetry ``book`` the call wall lands
+under ``stage="dispatch"`` and the CC rounds and syncs, builds and engine
+evictions as counters.  The engine LRU can evict by planned bytes
+(``engine_bytes_budget``).
 """
 from __future__ import annotations
 
@@ -78,6 +82,7 @@ from repro_torch.models.fcn.heads import (DEFAULT_MODEL, _valid_mask,
 from repro_torch.runtime.collectives import halo_bounds, halo_exchange
 from repro_torch.runtime.sharding import (fcn_activation_specs,
                                           mesh_axis_sizes, split_dims)
+from repro_torch.runtime.telemetry import SPANS
 
 PRECISIONS = ("f32", "bfp")
 SEED = 0            # torch.Generator seed of the He init
@@ -449,33 +454,65 @@ class EngineFactory:
         fn = self._engines.get(key)
         if fn is not None:
             return fn
-        fn = _serving(self._compile(tuple(hw), int(batch), plan, precision,
-                                    model))
+        build = SPANS.begin("engine.build")
+        evicted = 0
+        try:
+            fn = self._timed(_serving(self._compile(
+                tuple(hw), int(batch), plan, precision, model)),
+                tuple(hw), int(batch), kind, precision, model)
+            self.stats["compiled"].append(
+                {"hw": tuple(hw), "batch": int(batch),
+                 "plan": describe_plan(plan), "precision": precision,
+                 "model": model})
+            evicted = self._put_engine(key, fn, self.engine_weight_bytes(
+                hw, batch, precision, model))
+        finally:
+            SPANS.end(build, counts={"engine.builds": 1,
+                                     "engine.evictions": evicted})
         if self.book is not None:
-            fn = self._timed(fn, tuple(hw), int(batch), kind,
-                             precision, model)
-        self.stats["compiled"].append(
-            {"hw": tuple(hw), "batch": int(batch),
-             "plan": describe_plan(plan), "precision": precision,
-             "model": model})
-        self._engines.put(key, fn, weight=self.engine_weight_bytes(
-            hw, batch, precision, model))
+            self.book.incr("engine_builds")
         return fn
+
+    def _put_engine(self, key, fn, weight: int = 0) -> int:
+        """Put one entry in the engine LRU; returns (and books) how many
+        entries it evicted."""
+        evicted = self._engines.put(key, fn, weight=weight)
+        if evicted and self.book is not None:
+            self.book.incr("engine_evictions", evicted)
+        return evicted
 
     def _timed(self, fn: Callable, hw, batch: int, kind: str,
                precision: str, model: str) -> Callable:
-        """Record each engine call's wall into the book (the DISPATCH
-        side: the wall ends when the call returns, not when the card is
-        done)."""
+        """Each engine call as an ``engine.run`` span carrying the CC
+        rounds and syncs it counted (``SPANS`` tally), and, with a book,
+        its wall under ``stage="dispatch"`` and the counts as counters.
+        The wall is the host's: the launches, and the waits inside the
+        call.  On the card the CC stitching reads one convergence flag a
+        round (``postprocess.merge_rounds``), and the first read waits
+        for the forward, so the wall ends once the labels have converged
+        on the device, not once the launches are queued."""
+        book = self.book
+
         def timed(params, x, valid_q):
-            t0 = time.perf_counter()
-            out = fn(params, x, valid_q)
-            self.book.record_step(hw, batch, kind, time.perf_counter() - t0,
-                                  stage="dispatch", precision=precision,
-                                  model=model)
+            SPANS.take()
+            t0 = time.perf_counter_ns()
+            span = SPANS.begin("engine.run", t0)
+            try:
+                out = fn(params, x, valid_q)
+            finally:
+                t1 = time.perf_counter_ns()
+                counts = SPANS.take()
+                SPANS.end(span, t1, counts)
+            if book is not None:
+                book.record_step(hw, batch, kind, (t1 - t0) * 1e-9,
+                                 stage="dispatch", precision=precision,
+                                 model=model)
+                for name, n in counts.items():
+                    book.incr(name.replace(".", "_"), n)
             return out
 
-        timed.forward = fn.forward
+        if hasattr(fn, "forward"):
+            timed.forward = fn.forward
         return timed
 
     def boxes_fn(self, hw: Tuple[int, int], batch: int,
@@ -490,9 +527,14 @@ class EngineFactory:
         fn = self._engines.get(key)
         if fn is not None:
             return fn
-        fn = functools.partial(pp.boxes_from_labels_batched_torch,
-                               capacity=int(capacity))
-        self._engines.put(key, fn)
+        tail = functools.partial(pp.boxes_from_labels_batched_torch,
+                                 capacity=int(capacity))
+
+        def fn(labels):
+            with SPANS.span("boxes.launch"):
+                return tail(labels)
+
+        self._put_engine(key, fn)
         return fn
 
     def _compile(self, hw, batch: int, plan: ExecutionPlan, precision: str,
@@ -515,8 +557,9 @@ class EngineFactory:
         model_obj = self.model(hw, precision, model)
 
         def run(params, x, valid_q):
-            return model_obj.head.tail(self, model_obj.apply(params, x),
-                                       valid_q)
+            with SPANS.span("engine.forward"):
+                maps = model_obj.apply(params, x)
+            return model_obj.head.tail(self, maps, valid_q)
 
         run.forward = model_obj.apply
         return run
@@ -569,7 +612,9 @@ class EngineFactory:
             for (dev, m, p, xs), vq in zip(shards(params, x),
                                            valid_q.chunk(n, dim=dim)):
                 with _on(dev):
-                    outs.append(m.head.tail(self, m.apply(p, xs),
+                    with SPANS.span("engine.forward"):
+                        maps = m.apply(p, xs)
+                    outs.append(m.head.tail(self, maps,
                                             vq.to(dev, non_blocking=True)))
             return tuple(gather(outs))
 
@@ -651,7 +696,8 @@ class EngineFactory:
                 for k in outs[0][0]}
 
         def run(params, x, valid_q):
-            maps = forward(params, x)
+            with SPANS.span("engine.forward"):
+                maps = forward(params, x)
             with _on(first):
                 return model_obj.head.tail(
                     self, maps, valid_q.to(first, non_blocking=True))

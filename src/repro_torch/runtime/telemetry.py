@@ -2,15 +2,24 @@
 
 :class:`CostBook` keeps engine step times keyed by ``(bucket_hw, batch,
 plan_kind)`` with a ``stage`` (``"dispatch"``: the engine-call wall that
-``runtime/executor.EngineFactory`` records; ``"step"``: dispatch through
-the copy to the host, recorded by ``launch/serve.STDService``;
-``"postprocess"``: one image's box decode), a ``precision`` and a
-``model``, and named series, counters and gauges from
-``launch/batching.MicroBatcher``.  Every series keeps a count, an EWMA
-and a bounded window of recent samples for p50/p99; all mutations hold
-one lock.  :meth:`CostBook.snapshot` and :func:`prometheus_text` export
-it all in a flat, scrapeable form (labels embedded Prometheus-style in
-the metric names), which ``STDService.metrics_snapshot()`` serves.
+``runtime/executor.EngineFactory`` records, launches and the CC rounds'
+convergence reads included, so on the card it waits for the forward;
+``"step"``: dispatch through the copy to the host, recorded by
+``launch/serve.STDService``; ``"postprocess"``: one image's box decode),
+a ``precision`` and a ``model``, and named series, counters and gauges
+from ``launch/batching.MicroBatcher`` and the engine factory.  Every
+series keeps a count, an EWMA and a bounded window of recent samples for
+p50/p99; all mutations hold one lock.  :meth:`CostBook.snapshot` and
+:func:`prometheus_text` export it all in a flat, scrapeable form (labels
+embedded Prometheus-style in the metric names), which
+``STDService.metrics_snapshot()`` serves.
+
+Spans: :data:`SPANS`, one process-wide :class:`SpanLog`, records timed
+intervals at the serving and engine layers' boundaries (name, start,
+end, thread, own id, parent id, and the request or batch they belong
+to) while a ``torch.profiler`` profile is active, and nothing otherwise.
+Where a book series and a span time the same interval, one pair of
+clock reads feeds both.
 
 Calibration: the analytic step cost (``runtime/planner.step_cost``) is
 linear in five of the :class:`~repro_torch.runtime.planner.CostParams`
@@ -23,12 +32,18 @@ calibration functions, so the layering stays one-directional.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import itertools
 import json
 import math
 import threading
+import time
 from collections import deque
-from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import (Any, Dict, Iterable, List, NamedTuple, Optional,
+                    Sequence, Tuple)
+
+from torch.autograd import profiler as _autograd_profiler
 
 StepKey = Tuple[Tuple[int, int], int, str]
 
@@ -284,6 +299,194 @@ def prometheus_text(metrics: Dict[str, float]) -> str:
         v = metrics[name]
         lines.append(f"{name} {float(v):.9g}")
     return "\n".join(lines) + ("\n" if lines else "")
+
+
+# -- spans ---------------------------------------------------------------------
+
+class SpanRecord(NamedTuple):
+    """One finished span.  ``start`` and ``end`` are ns: on
+    ``time.perf_counter_ns()`` in the ring, on the device trace's clock
+    (Unix epoch, as kineto events' ``start_ns()``) from
+    :meth:`SpanLog.records`.  ``req`` and ``batch`` are the request and
+    batch the span belongs to, ``reqs`` a batch's request ids; ``counts``
+    what the span counted (the CC rounds of an engine call, a build's
+    evictions)."""
+
+    name: str
+    start: int
+    end: int
+    tid: int
+    id: int
+    parent: Optional[int]
+    req: Optional[int]
+    batch: Optional[int]
+    reqs: Tuple[int, ...]
+    counts: Dict[str, int]
+
+
+class Span:
+    """An open span, as :meth:`SpanLog.begin` returns it while tracing."""
+
+    __slots__ = ("name", "start", "tid", "id", "parent", "req", "batch",
+                 "reqs", "range")
+
+
+class _Scope:
+    """``with log.span(name):`` while tracing."""
+
+    __slots__ = ("log", "name", "parent", "span")
+
+    def __init__(self, log: "SpanLog", name: str, parent: Optional[Span]):
+        self.log, self.name, self.parent = log, name, parent
+
+    def __enter__(self) -> Optional[Span]:
+        self.span = self.log.begin(self.name, parent=self.parent)
+        return self.span
+
+    def __exit__(self, *exc) -> None:
+        self.log.end(self.span)
+
+
+_OFF = contextlib.nullcontext()        # ``span()`` with the gate off
+
+
+class SpanLog:
+    """A bounded ring of finished spans, kept in memory and read after
+    the run.
+
+    **The gate**: spans are recorded only while a ``torch.profiler``
+    profile is active (``torch.autograd.profiler._is_profiler_enabled``, a
+    module global every thread sees); with it off, :meth:`begin` and
+    :meth:`span` cost one attribute read and record nothing.
+
+    A *scoped* span opens and closes on one thread, nests on that
+    thread's stack (its parent is the span open there, unless one is
+    given) and opens a ``torch.profiler.record_function`` range of its
+    name, so that a profiler recording every thread names each device
+    idle gap by the program span open then.  An *unscoped* span is a
+    wait that starts on one thread and ends on another (a request's life,
+    a queue); it opens no range.  A span shares the request and batch
+    ids of its parent, or of the span open on its thread.
+
+    Counts: :meth:`count` adds to this thread's tally, ungated, and
+    :meth:`take` hands the tally to whoever closes the enclosing work
+    (an engine call passes it to its book and to its span's ``counts``).
+    """
+
+    def __init__(self, capacity: int = 1 << 16):
+        self._ring: deque = deque(maxlen=capacity)
+        self._ids = itertools.count(1)
+        self._local = threading.local()
+        # one anchor pairs the span clock with the device trace's
+        pc, unix = time.perf_counter_ns(), time.time_ns()
+        self._offset = unix - pc
+
+    @staticmethod
+    def on() -> bool:
+        """Whether spans are being recorded (a profile is active)."""
+        return _autograd_profiler._is_profiler_enabled
+
+    def _stack(self) -> List[Span]:
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
+
+    def begin(self, name: str, start: Optional[int] = None, *,
+              parent: Optional[Span] = None, req: Optional[int] = None,
+              batch: Optional[int] = None, reqs: Sequence[int] = (),
+              scoped: bool = True) -> Optional[Span]:
+        """Open a span at ``start`` (``perf_counter_ns``; now if None);
+        None with the gate off.  Ids not given come from ``parent``, else
+        from the span open on this thread."""
+        if not _autograd_profiler._is_profiler_enabled:
+            return None
+        stack = self._stack()
+        ctx = parent if parent is not None else (stack[-1] if stack
+                                                 else None)
+        sp = Span()
+        sp.name = name
+        sp.tid = threading.get_ident()
+        sp.id = next(self._ids)
+        sp.parent = ctx.id if ctx is not None and (
+            scoped or parent is not None) else None
+        sp.req = req if req is not None else (ctx.req if ctx else None)
+        sp.batch = batch if batch is not None else (
+            ctx.batch if ctx else None)
+        sp.reqs = tuple(reqs) if reqs else (ctx.reqs if ctx else ())
+        sp.range = None
+        if scoped:
+            stack.append(sp)
+            sp.range = _autograd_profiler.record_function(name)
+            sp.range.__enter__()
+        sp.start = time.perf_counter_ns() if start is None else start
+        return sp
+
+    def request(self, name: str) -> Optional[Span]:
+        """Open the unscoped root span of a new request: its id is the
+        request id every span the request causes carries."""
+        sp = self.begin(name, scoped=False)
+        if sp is not None:
+            sp.req = sp.id
+        return sp
+
+    def batch(self, name: str, reqs: Sequence[int],
+              start: Optional[int] = None) -> Optional[Span]:
+        """Open the unscoped first span of a new batch of requests
+        ``reqs``: its id is the batch id."""
+        sp = self.begin(name, start, reqs=reqs, scoped=False)
+        if sp is not None:
+            sp.batch = sp.id
+        return sp
+
+    def end(self, span: Optional[Span], end: Optional[int] = None,
+            counts: Optional[Dict[str, int]] = None) -> None:
+        """Close ``span`` at ``end`` (now if None) and record it."""
+        if span is None:
+            return
+        t = time.perf_counter_ns() if end is None else end
+        if span.range is not None:
+            stack = self._stack()
+            if stack and stack[-1] is span:
+                stack.pop()
+            elif span in stack:
+                stack.remove(span)
+            span.range.__exit__(None, None, None)
+        self._ring.append(SpanRecord(
+            span.name, span.start, t, span.tid, span.id, span.parent,
+            span.req, span.batch, span.reqs, dict(counts or {})))
+
+    def span(self, name: str, parent: Optional[Span] = None):
+        """``with SPANS.span(name):`` a scoped span around the block."""
+        if not _autograd_profiler._is_profiler_enabled:
+            return _OFF
+        return _Scope(self, name, parent)
+
+    def count(self, name: str, n: int = 1) -> None:
+        """Add ``n`` to this thread's tally of ``name``."""
+        tally = getattr(self._local, "tally", None)
+        if tally is None:
+            tally = self._local.tally = {}
+        tally[name] = tally.get(name, 0) + n
+
+    def take(self) -> Dict[str, int]:
+        """This thread's tally since the last take, emptied."""
+        tally = getattr(self._local, "tally", None)
+        self._local.tally = {}
+        return tally or {}
+
+    def records(self) -> List[SpanRecord]:
+        """The ring's spans, oldest first, on the device trace's clock."""
+        off = self._offset
+        return [r._replace(start=r.start + off, end=r.end + off)
+                for r in self._ring.copy()]
+
+    def clear(self) -> None:
+        self._ring.clear()
+
+
+# the process's span log: the serving and engine layers write into it
+SPANS = SpanLog()
 
 
 # -- calibration ---------------------------------------------------------------

@@ -125,14 +125,15 @@ def script_full(m):
 
 def script_timeout(m):
     clk = m.FakeClock()
+    rec = m.LatencyRecorder(clk)
     with m.MicroBatcher(lambda k, ps: ps, max_batch=8, max_wait_ms=30,
                         clock=clk) as mb:
-        fut = mb.submit("a", 42)
+        fut = rec.track(mb.submit("a", 42))
         clk.advance(0.029)
         early = fut.done()
         clk.advance(0.002)
         out = [fut.result(timeout=WAIT), early]
-    return _flushes(mb), out + [mb.stats["item_latency_s"]]
+    return _flushes(mb), out + [rec.wait(WAIT)]
 
 
 def script_drain(m):
