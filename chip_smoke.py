@@ -43,6 +43,13 @@ non-zero before the result line is printed.
    head_logits, N 1; EAST's head_logits, N 5), against the plain versions
    on the same card tensors (K1 2e-3, K2 1e-4); the deepest ResNet-50
    shape of each (s4b2_c2, s4b*_c1) is timed.
+   Then the BFP quantize kernel (``phase_bfp_kernels``, ``BFP_CASES``):
+   the bulk cell's stage-2 stride-2 input (64, 72, 128, 256) and K2's A
+   at ResNet-50's s1 (589824, 256) in FP16, the 3-channel stem, a 3x3
+   weight along Cin and K2's B along K; both forms bit-equal
+   (``torch.equal``) to ``core/bfp.py`` on the same card tensors, the
+   engine's form timed against that torch-op chain (``plain_ms``), the
+   bound the bytes read once and written once.
    Times are CUDA-event medians of 20 calls after 3 warm-up calls, each
    call bracketed on an idle card, so that a call shorter than its
    host launch path counts that path (``ms``, ``plain_ms``,
@@ -69,7 +76,8 @@ non-zero before the result line is printed.
    1.0, 512x512, merge (128, 64, 32), optimized, BFP, FP16 storage) with
    seeded random weights through ``EngineFactory``'s single-device engine
    on a batch of 2.  Launch counters are zeroed just before that run and
-   read just after: K1 must run 17 times, K2 7 times and K3 once.  The
+   read just after: K1 must run 17 times, K2 7 times, K3 once and the BFP
+   quantize kernel 48 times (each conv's two operands).  The
    maps of image 0 are held against the port's CPU run of the same
    weights and image (probabilities within 2e-2, mean within 2e-3, as in
    tests/test_torch_engine.py), and the CC labels from the card (K3)
@@ -304,20 +312,35 @@ HW = (512, 512)
 BAND4_CONV1_2 = (BATCH, HW[0] // 4 + 8, HW[1], 64, 64)
 LM_BATCH, LM_PROMPT, LM_TOKENS = 4, 512, 32
 FCN_KERNELS = ("winograd_tiles", "bfp_matmul_quantized",
-               "local_spread_converge")
-# K1, K2, K3 per forward pass (one batch) of each STD path
+               "local_spread_converge", "bfp_quantize")
+# K1, K2, K3 and the BFP quantize kernel (both operands of each conv: a
+# roundtrip each, or K2's two) per forward pass (one batch) of each STD
+# path in BFP
 VGG_LAUNCHES = dict(winograd_tiles=17, bfp_matmul_quantized=7,
-                    local_spread_converge=1)
+                    local_spread_converge=1, bfp_quantize=48)
 RESNET_LAUNCHES = dict(winograd_tiles=17, bfp_matmul_quantized=40,
-                       local_spread_converge=1)
+                       local_spread_converge=1, bfp_quantize=128)
 ZOO_LAUNCHES = {"east": dict(winograd_tiles=17, bfp_matmul_quantized=7,
-                             local_spread_converge=0),
+                             local_spread_converge=0, bfp_quantize=48),
                 "db": dict(winograd_tiles=18, bfp_matmul_quantized=8,
-                           local_spread_converge=1)}
+                           local_spread_converge=1, bfp_quantize=52)}
 LM_KERNELS = ("flash_attention_padded", "ssd_chunk")
 PORT_KERNELS = ("winograd_fused_kernel", "bfp_matmul_kernel",
                 "cc_local_kernel", "flash_tf32_kernel", "flash_wgmma_kernel",
-                "ssd_chunk_kernel")     # names of the kernels in csrc/
+                "ssd_chunk_kernel", "bfp_quantize_rows_kernel",
+                "bfp_quantize_cols_kernel")     # names of the kernels in csrc/
+# the BFP quantize kernel in phase 1: name, shape, dtype, axis and the form
+# the engine takes there (the bulk cell's largest roundtrip, stage 2's
+# stride-2 input at batch 64 and 288 x 512; K2's A at ResNet-50's s1 at
+# the same batch; the stem's 3-channel input; a 3x3 weight along Cin;
+# K2's B along K)
+BFP_CASES = (
+    ("s2 input", (64, 72, 128, 256), "float16", -1, "roundtrip"),
+    ("K2 A s1", (589824, 256), "float16", -1, "quantize"),
+    ("stem", (64, 288, 512, 3), "float16", -1, "roundtrip"),
+    ("3x3 weight along Cin", (3, 3, 256, 256), "float32", -2, "roundtrip"),
+    ("K2 B along K", (1024, 256), "float32", 0, "quantize"),
+)
 # K4 in phase 1: name, (B, Hq, Hkv, L, D), dtype
 K4_CASES = (
     ("zamba2 prefill bf16", (LM_BATCH, 32, 32, LM_PROMPT, 80), "bfloat16"),
@@ -741,6 +764,68 @@ def _distinct(shapes):
     return out
 
 
+def phase_bfp_kernels(torch, profile=False) -> dict:
+    """The BFP quantize kernel at each of ``BFP_CASES``: both forms
+    bit-equal to ``core/bfp.py``'s torch ops on the same card tensors
+    (``torch.equal``), and the engine's form there timed against those
+    ops (``plain_ms``: the chain the kernel replaced).  The bound is the
+    bytes of the input read once in its stored type and the output
+    written once."""
+    from repro_torch.core import bfp
+    from repro_torch.kernels.bfp_quantize import quantize, roundtrip
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rows = []
+    for name, shape, dt, axis, form in BFP_CASES:
+        x = (torch.randn(shape, generator=gen, device=dev) * torch.exp2(
+            torch.randint(-8, 8, shape, generator=gen, device=dev).float())
+             ).to(getattr(torch, dt))
+        got = roundtrip(x, axis=axis)
+        if not torch.equal(got, bfp.roundtrip(x.to(torch.float32),
+                                              axis=axis)):
+            fail(f"BFP quantize {name}: roundtrip differs from core/bfp.py")
+        m, e = quantize(x, axis=axis)
+        q = bfp.quantize(x, axis=axis)
+        if not (torch.equal(m, q.mantissa.to(torch.int16))
+                and torch.equal(e, q.exponent)):
+            fail(f"BFP quantize {name}: quantize differs from core/bfp.py")
+        del q
+        if form == "roundtrip":
+            outs = (got,)
+            del m, e
+
+            def kernel(x=x, axis=axis):
+                return roundtrip(x, axis=axis)
+
+            def plain(x=x, axis=axis):
+                return bfp.roundtrip(x.to(torch.float32), axis=axis)
+        else:
+            outs = (m, e)
+            del got
+
+            def kernel(x=x, axis=axis):
+                return quantize(x, axis=axis)
+
+            def plain(x=x, axis=axis):
+                q = bfp.quantize(x, axis=axis)
+                return q.mantissa.to(torch.int16), q.exponent
+
+        t = time_row(torch, kernel, plain)
+        bms, by = bound(nbytes(x, *outs), 0.0)
+        what = f"{name} {tuple(shape)} {dt} axis {axis} {form}"
+        rows.append(dict(shape=what, max_abs_err=0.0, **t, bound_ms=bms,
+                         bound_by=by))
+        log(f"BFP quantize {what}: both forms bit-equal to core/bfp.py, "
+            f"{fmt_times(t)} bound {bms:.4f} ms ({by}, "
+            f"{100 * bms / t['device_ms']:.1f}% of device)")
+        if profile and name == "s2 input":
+            profile_calls(torch, [(f"BFP quantize {name}", kernel)])
+        del x, outs
+        torch.cuda.empty_cache()
+    return {"bfp_quantize": rows}
+
+
 def phase_zoo_kernels(torch, np, profile=False):
     """Phase 1 at the shapes of ResNet-50 PixelLink and of the EAST and DB
     heads (512x512, batch 2): K1 at each distinct shape of ResNet-50's 17
@@ -1034,11 +1119,21 @@ def _box_keys(out):
     return [[(b["label"], b["box"], b["area"]) for b in r] for r in out]
 
 
+def _warm_params(svc, images) -> None:
+    """Fold and BFP-normalize the weights of each bucket ``images`` fall
+    in ahead of a counted window, as a deployment does: on the card
+    ``normalize_weights`` launches the BFP quantize kernel once a weight,
+    and the counts that follow are the forwards' alone."""
+    for img in images:
+        hw = svc.preprocess(img)[0].shape[:2]
+        svc.factory.params(hw, svc.precision, svc.model_name)
+
+
 def _checked_launches(kernels, n_batches: int, what: str,
                       per_batch: dict = VGG_LAUNCHES) -> dict:
     """The counts since the last reset must be one engine forward per
-    batch: ``per_batch`` (VGG-16 PixelLink: K1 17, K2 7 and K3 1) each
-    time."""
+    batch: ``per_batch`` (VGG-16 PixelLink: K1 17, K2 7, K3 1 and BFP
+    quantize 48) each time."""
     launches = kernels.launch_counts()
     want = dict.fromkeys(launches, 0)
     want.update({k: v * n_batches for k, v in per_batch.items()})
@@ -1059,6 +1154,7 @@ def phase_serving(torch, np, profile=False) -> dict:
     stream = list(RequestStream(6, seed=0,
                                 hw_range=((256, 512), (256, 512))))
     images = [req["image"] for req in stream]
+    _warm_params(svc, images)
     kernels.reset_launch_counts()
     host = []
     for i, req in enumerate(stream):
@@ -1081,6 +1177,7 @@ def phase_serving(torch, np, profile=False) -> dict:
     dev = STDService(**geo, postprocess="device", max_batch=4,
                      max_wait_ms=5, inflight=1,
                      params=svc.factory.params(HW, "f32"))
+    _warm_params(dev, images)
     kernels.reset_launch_counts()
     got = [dev(img) for img in images]
     _checked_launches(kernels, len(images), "device route, 6 requests")
@@ -1218,6 +1315,7 @@ def phase_zoo_serving(torch, np) -> dict:
             score[0, :valid[0] // 4, :valid[1] // 4].cpu().numpy(), q))
         params = probe.factory.params(HW, "f32", model)
         svc = STDService(**geo, model=model, score_thr=thr, params=params)
+        _warm_params(svc, images)
         kernels.reset_launch_counts()
         seq = [svc(img) for img in images]
         _checked_launches(kernels, len(images), f"{model}, 6 requests",
@@ -1248,6 +1346,7 @@ def phase_zoo_serving(torch, np) -> dict:
             dev = STDService(**geo, model=model, postprocess="device",
                              boxes_capacity=1024, score_thr=thr,
                              params=params)
+            _warm_params(dev, images)
             kernels.reset_launch_counts()
             got = [dev(img) for img in images]
             _checked_launches(kernels, len(images), "db device route", want)
@@ -1270,13 +1369,14 @@ def phase_zoo_serving(torch, np) -> dict:
 # ---------------------------------------------------------------------------
 
 def _plan_launches(name: str, bands: int, shards: int, per_forward: dict):
-    """K1 and K2 run once per band and batch shard (each band runs the
-    whole program); K3 once per batch, once per shard for DataParallel
-    (its tail runs per shard)."""
+    """K1, K2 and the BFP quantize kernel run once per band and batch
+    shard (each band runs the whole program); K3 once per batch, once per
+    shard for DataParallel (its tail runs per shard)."""
     k3 = shards if name.startswith("data_parallel") else 1
     return {"winograd_tiles": per_forward["winograd_tiles"] * bands * shards,
             "bfp_matmul_quantized":
                 per_forward["bfp_matmul_quantized"] * bands * shards,
+            "bfp_quantize": per_forward["bfp_quantize"] * bands * shards,
             "local_spread_converge": per_forward["local_spread_converge"]
             * k3}
 
@@ -1572,6 +1672,7 @@ def phase_plans(torch, np):
         hw = xp.shape[:2]
         if tr != (what == "512x2048") or hw != (2048, 512):
             fail(f"tall plan, {what}: padded to {hw}, transposed {tr}")
+        svc.factory.params(hw, "bfp")       # normalized ahead
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
         boxes = svc(img)
@@ -2127,7 +2228,10 @@ def phase_fleet(torch, np, served: dict) -> dict:
         n_batches = sum(len(s.stats["batching"]["batches"]) for s in svcs)
         return got, wall, lat, dict(router.stats["placed"]), n_batches
 
-    # every engine built on each replica, untimed
+    # every engine built on each replica, untimed, and every bucket's
+    # weights normalized on each
+    for svc in svcs:
+        _warm_params(svc, images)
     run("round_robin")
     for policy in FLEET_POLICIES:
         kernels.reset_launch_counts()
@@ -2974,6 +3078,8 @@ def main() -> None:
         rows[name] += extra
     rows.update(timed("phase 1, LM kernels", phase_lm_kernels, torch,
                       profile=profile))
+    rows.update(timed("phase 1, BFP quantize", phase_bfp_kernels, torch,
+                      profile=profile))
     fcn = timed("phase 2, VGG-16", phase_model, torch, np, VGG16,
                 VGG_LAUNCHES, profile=profile)
     resnet = timed("phase 2, ResNet-50", phase_model, torch, np, RESNET50,
@@ -3028,6 +3134,8 @@ def main() -> None:
             "src/repro/kernels/flash_attention/kernel.py:30"),
         "ssd_chunk": ("src/repro_torch/csrc/ssd_chunk.cu",
                       "src/repro/kernels/ssd_scan/kernel.py:30"),
+        "bfp_quantize": ("src/repro_torch/csrc/bfp_quantize.cu",
+                         "src/repro/core/bfp.py:111"),
     }
     out = []
     for name, shapes in rows.items():

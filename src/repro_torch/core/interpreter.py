@@ -140,8 +140,12 @@ class FCNEngine:
         return out
 
     def _bfp_roundtrip(self, x, axis):
-        return bfp_lib.roundtrip(
-            x.to(torch.float32), block_size=self.bfp.block_size,
+        """The f32 value of ``x`` through BFP: on the card one launch of
+        ``kernels/bfp_quantize``, reading ``x`` in its stored type."""
+        from repro_torch.kernels.bfp_quantize import roundtrip
+
+        return roundtrip(
+            x.contiguous(), block_size=self.bfp.block_size,
             mantissa_bits=self.bfp.mantissa_bits, axis=axis,
             rounding=self.bfp.rounding)
 
@@ -196,22 +200,19 @@ class FCNEngine:
               relu: bool = False):
         w = p["w"]
         b = p.get("b")
-        if transposed:
-            # transposed-image mode: transpose the weight kernels too
-            w = w.transpose(0, 1)
         depthwise = bool(spec.table and spec.table.get("depthwise"))
         if self._runs_k2(mc, spec):
-            # a 1x1 conv is a matmul: K2 quantizes both operands along the
-            # contraction dim (activations along channels, weights along
-            # Cin, the same blocking as the roundtrip below); the K split
-            # is chosen for one image of the whole plane, so every batch
-            # size and every band gives an image the same bits
+            # a 1x1 conv is a matmul (transposing its kernel changes
+            # nothing): K2 quantizes both operands along the contraction
+            # dim (activations along channels, in their stored type, and
+            # weights along Cin, the same blocking as the roundtrip below);
+            # the K split is chosen for one image of the whole plane, so
+            # every batch size and every band gives an image the same bits
             from repro_torch.kernels.bfp_matmul import bfp_matmul
 
             n, hh, ww, cin = x.shape
             y = bfp_matmul(
-                x.to(torch.float32).reshape(-1, cin),
-                w.to(torch.float32).reshape(cin, -1),
+                x.reshape(-1, cin), w.reshape(cin, -1),
                 block_size=self.bfp.block_size,
                 mantissa_bits=self.bfp.mantissa_bits,
                 rounding=self.bfp.rounding,
@@ -220,8 +221,12 @@ class FCNEngine:
             return fuse.conv_epilogue(y, b, relu)
         if self.bfp is not None:
             x = self._bfp_roundtrip(x, axis=-1)
-            # weights quantize in-call too (idempotent under trunc)
+            # weights quantize in-call too (idempotent under trunc); the
+            # blocks run along Cin, so they may be transposed after
             w = self._bfp_roundtrip(w, axis=-2)
+        if transposed:
+            # transposed-image mode: transpose the weight kernels too
+            w = w.transpose(0, 1)
         x = x.to(torch.float32)
         w = w.to(torch.float32)
         if depthwise:

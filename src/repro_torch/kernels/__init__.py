@@ -9,6 +9,8 @@ the same function:
   cc_label/         K3, tile-local connected-component spread
   flash_attention/  K4, blockwise online-softmax attention (LM prefill)
   ssd_scan/         K5, Mamba2 SSD intra-chunk block (LM prefill)
+  bfp_quantize/     BFP encoding (Algorithm 1) of a conv's operands in
+                    one pass: the FCN engine's roundtrips and K2's inputs
 
 A wrapper runs the plain version only for tensors on the CPU; for CUDA
 tensors it launches its kernel (built at first use by ``build.py``) or
@@ -21,6 +23,8 @@ VJP): every wrapper raises, on any device, when grad mode is on and an
 operand requires grad (:func:`refuse_autograd`), rather than return a
 result that carries no gradient.  LM training therefore runs without
 ``use_flash`` and ``use_kernel``, as the reference's does.
+``bfp_quantize``'s plain version on the CPU is ``core/bfp.py``'s ops,
+which autograd can differentiate, so its wrappers refuse only on the card.
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ import torch
 def wrappers() -> Dict[str, object]:
     """Kernel name -> the wrapper function that launches it."""
     from .bfp_matmul.ops import bfp_matmul_quantized
+    from .bfp_quantize.ops import bfp_quantize
     from .cc_label.ops import local_spread_converge
     from .flash_attention.ops import flash_attention_padded
     from .ssd_scan.ops import ssd_chunk
@@ -43,6 +48,7 @@ def wrappers() -> Dict[str, object]:
         "local_spread_converge": local_spread_converge,
         "flash_attention_padded": flash_attention_padded,
         "ssd_chunk": ssd_chunk,
+        "bfp_quantize": bfp_quantize,
     }
 
 

@@ -1,8 +1,9 @@
 """K2 wrapper: block floating-point matmul.
 
-:func:`bfp_matmul` quantizes A along K (``axis=-1``) and B along K
-(``axis=0``) in torch ops (Algorithm 1, ``core/bfp.py``; a ragged last
-block is zero-padded exactly as the reference's ``_blockify``), then
+:func:`bfp_matmul` quantizes A and B along K (``axis=-1`` and
+``axis=0``; Algorithm 1, ``core/bfp.py``, a ragged last block zero-padded
+exactly as the reference's ``_blockify``): on the card one launch of
+``kernels/bfp_quantize`` an operand, on the CPU torch ops.  Then
 :func:`bfp_matmul_quantized` dequantizes and multiplies.  On a CUDA
 tensor that launches ``csrc/bfp_matmul.cu``; on a CPU tensor it runs
 :func:`bfp_matmul_quantized_plain`.  Mantissas travel as int16, which
@@ -16,6 +17,7 @@ import torch
 
 from repro_torch.core import bfp as bfp_lib
 from repro_torch.kernels import build, refuse_autograd
+from repro_torch.kernels.bfp_quantize import ops as fused_bfp
 
 MIN_BLOCKS = 132            # one block per SM of an H100
 MAX_SPLITS = 8              # K splits of one tile: a cluster of blocks
@@ -124,19 +126,13 @@ def quantize_operands(a: torch.Tensor, b: torch.Tensor, *,
                       block_size: int = bfp_lib.DEFAULT_BLOCK,
                       mantissa_bits: int = bfp_lib.DEFAULT_MANTISSA,
                       rounding: str = "trunc"):
-    """A (M, K) and B (K, N) -> (mA, eA, mB, eB) in the kernel's types."""
-    if mantissa_bits > MAX_MANTISSA:
-        raise ValueError("int16 mantissas hold at most 15 mantissa bits")
-    qa = bfp_lib.quantize(a, block_size=block_size,
-                          mantissa_bits=mantissa_bits, axis=-1,
-                          rounding=rounding)
-    qb = bfp_lib.quantize(b, block_size=block_size,
-                          mantissa_bits=mantissa_bits, axis=0,
-                          rounding=rounding)
-    return (qa.mantissa.to(torch.int16).contiguous(),
-            qa.exponent.contiguous(),
-            qb.mantissa.to(torch.int16).contiguous(),
-            qb.exponent.contiguous())
+    """A (M, K) and B (K, N) -> (mA, eA, mB, eB) in the kernel's types,
+    each operand in one launch of ``kernels/bfp_quantize`` on the card
+    (in its stored type, f32 or FP16)."""
+    geo = dict(block_size=block_size, mantissa_bits=mantissa_bits,
+               rounding=rounding)
+    return (*fused_bfp.quantize(a.contiguous(), axis=-1, **geo),
+            *fused_bfp.quantize(b.contiguous(), axis=0, **geo))
 
 
 def bfp_matmul(a: torch.Tensor, b: torch.Tensor, *,

@@ -26,7 +26,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("winograd_conv.cu", "bfp_matmul.cu", "cc_label.cu",
-           "flash_attention.cu", "ssd_chunk.cu")
+           "flash_attention.cu", "ssd_chunk.cu", "bfp_quantize.cu")
 HEADERS = ("tf32x3.cuh",)
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -49,6 +49,9 @@ SIGNATURES = {
     # c, b, xdt, scum, y, st, strides (18 int64), BC, G, HPG, Lc, N, P,
     # stream
     "ssd_chunk_f32": (_P,) * 7 + (_I,) * 6 + (_P,),
+    # x, dtype, mant, expo, val, outer, K, inner, block_size,
+    # mantissa_bits, nearest, stream
+    "bfp_quantize": (_P, _I) + (_P,) * 3 + (_I,) * 6 + (_P,),
 }
 
 _lock = threading.Lock()

@@ -22,6 +22,8 @@ from repro_torch.kernels.ssd_scan import ssd_chunk, ssd_chunk_plain, ssd_scan
 from repro_torch.kernels.winograd_conv import (
     winograd_conv2d, winograd_tiles, winograd_tiles_plain)
 
+from _bfp_cases import AXES, DTYPES, KS, bfp_values, shape_for
+
 
 def _normal(seed, shape):
     return np.random.default_rng(seed).standard_normal(shape) \
@@ -1143,3 +1145,159 @@ class TestOnCard:
         assert all(t.device.type == "cuda" for t in placed)
         assert rec["memory"]["argument_size_bytes"] == sum(
             t.numel() * t.element_size() for t in placed)
+
+
+@pytest.mark.cuda
+class TestBFPQuantizeOnCard:
+    """``csrc/bfp_quantize.cu`` against ``core/bfp.py``'s torch ops on the
+    same card tensors, bit-equal."""
+
+    @pytest.mark.parametrize("rounding", ["trunc", "nearest"])
+    @pytest.mark.parametrize("k", KS)
+    @pytest.mark.parametrize("axis", AXES)
+    @pytest.mark.parametrize("dtype", DTYPES)
+    def test_kernel_is_core_bfp(self, dtype, axis, k, rounding):
+        """Both forms: FP16 and f32 in, along the last, the next-to-last
+        and the first axis, K from the 3-channel stem to 2048 (the
+        vectorized rows and the strided columns, ragged blocks), all-zero
+        blocks, subnormals, exponents below ``exp2i``'s clamp and steps
+        below FP16's range (exact in the f32 result)."""
+        dev = _cuda()
+        from repro_torch.core import bfp
+        from repro_torch.kernels.bfp_quantize import (bfp_quantize, quantize,
+                                                      roundtrip)
+
+        x = bfp_values(k + axis, shape_for(axis, k), dtype, axis).to(dev)
+        geo = dict(axis=axis, rounding=rounding)
+        n = bfp_quantize.launches
+        got = roundtrip(x, **geo)
+        assert got.dtype == torch.float32 and got.is_contiguous()
+        assert torch.equal(got, bfp.roundtrip(x.to(torch.float32), **geo))
+        m, e = quantize(x, **geo)
+        q = bfp.quantize(x, **geo)
+        assert torch.equal(m, q.mantissa.to(torch.int16))
+        assert torch.equal(e, q.exponent)
+        assert bfp_quantize.launches == n + 2
+
+    @pytest.mark.parametrize("mantissa_bits", [0, 7, 15, 24])
+    def test_kernel_mantissa_widths(self, mantissa_bits):
+        dev = _cuda()
+        from repro_torch.core import bfp
+        from repro_torch.kernels.bfp_quantize import roundtrip
+
+        for axis in (-1, 0):
+            x = bfp_values(mantissa_bits, (96, 64), torch.float32,
+                           axis).to(dev)
+            geo = dict(axis=axis, mantissa_bits=mantissa_bits,
+                       rounding="nearest")
+            assert torch.equal(roundtrip(x, **geo), bfp.roundtrip(x, **geo))
+
+    @pytest.mark.parametrize("rounding", ["trunc", "nearest"])
+    @pytest.mark.parametrize("axis", [-1, 0])
+    @pytest.mark.parametrize("dtype", DTYPES)
+    def test_kernel_non_finite_as_torch_ops(self, dtype, axis, rounding):
+        """Infinities and NaNs (a random ResNet-50 overflows its FP16
+        storage) are encoded as the torch ops encode them on the card:
+        exponent 0, the mantissa saturated or 0."""
+        dev = _cuda()
+        from repro_torch.core import bfp
+        from repro_torch.kernels.bfp_quantize import quantize, roundtrip
+
+        x = bfp_values(11, shape_for(axis, 64), dtype, axis)
+        flat = x.view(-1)
+        flat[3::41] = float("inf")
+        flat[5::43] = float("-inf")
+        flat[7::47] = float("nan")
+        x = x.to(dev)
+        geo = dict(axis=axis, rounding=rounding)
+        assert torch.equal(roundtrip(x, **geo),
+                           bfp.roundtrip(x.to(torch.float32), **geo))
+        m, e = quantize(x, **geo)
+        q = bfp.quantize(x, **geo)
+        assert torch.equal(m, q.mantissa.to(torch.int16))
+        assert torch.equal(e, q.exponent)
+
+    def test_kernel_refusals(self):
+        """On the card the wrappers launch the kernel or raise, as K1 and
+        K2 do: non-contiguous input, an operand that requires grad, bf16
+        and more than 24 mantissa bits are refused, and nothing falls back
+        to the torch ops."""
+        dev = _cuda()
+        from repro_torch.kernels.bfp_quantize import (bfp_quantize, quantize,
+                                                      roundtrip)
+        from repro_torch.runtime.telemetry import SPANS
+
+        x = bfp_values(3, (4, 64, 40), torch.float16, -1).to(dev)
+        n = bfp_quantize.launches
+        SPANS.take()
+        with pytest.raises(ValueError):
+            roundtrip(x.transpose(1, 2))
+        with pytest.raises(ValueError):
+            quantize(x[..., ::2])
+        with pytest.raises(RuntimeError, match="no backward"):
+            roundtrip(x.float().requires_grad_(True))
+        with pytest.raises(RuntimeError, match="no backward"):
+            quantize(x.float().requires_grad_(True), axis=0)
+        with pytest.raises(ValueError):
+            roundtrip(x.bfloat16())
+        with pytest.raises(ValueError):
+            roundtrip(x, mantissa_bits=25)
+        with pytest.raises(ValueError):
+            quantize(x, mantissa_bits=16)
+        assert SPANS.take() == {}
+        assert bfp_quantize.launches == n
+        with torch.no_grad():
+            g = x.float().requires_grad_(True)
+            assert torch.equal(roundtrip(g), roundtrip(x.float()))
+        assert roundtrip(x[:0]).shape == (0, 64, 40)
+
+    @pytest.mark.parametrize("backbone,fused", [("vgg16", 48),
+                                                ("resnet50", 128)])
+    def test_engine_maps_equal_torch_glue(self, backbone, fused,
+                                          monkeypatch):
+        """A full-width PixelLink forward (batch 2, 256 x 384) gives
+        bit-equal maps with the kernel and with the torch glue
+        (``core/bfp.py``'s ops in place of the engine's roundtrip and of
+        K2's operand quantization), and counts ``bfp.fused`` once per
+        roundtrip and K2 operand (VGG-16 34 + 14, ResNet-50 48 + 80)."""
+        import dataclasses
+
+        dev = _cuda()
+        from repro_torch.configs.pixellink_std import RESNET50, VGG16
+        from repro_torch.core import bfp
+        from repro_torch.core.interpreter import FCNEngine
+        from repro_torch.kernels.bfp_matmul import ops as k2_ops
+        from repro_torch.models.fcn import DetectionModel, build_head
+        from repro_torch.runtime.telemetry import SPANS
+
+        def torch_roundtrip(engine, x, axis):
+            return bfp.roundtrip(
+                x.to(torch.float32), block_size=engine.bfp.block_size,
+                mantissa_bits=engine.bfp.mantissa_bits, axis=axis,
+                rounding=engine.bfp.rounding).contiguous()
+
+        def torch_operands(a, b, **geo):
+            qa = bfp.quantize(a, axis=-1, **geo)
+            qb = bfp.quantize(b, axis=0, **geo)
+            return (qa.mantissa.to(torch.int16).contiguous(),
+                    qa.exponent.contiguous(),
+                    qb.mantissa.to(torch.int16).contiguous(),
+                    qb.exponent.contiguous())
+
+        cfg = dataclasses.replace(
+            VGG16 if backbone == "vgg16" else RESNET50, image_size=(256, 384))
+        model = DetectionModel(cfg, build_head("pixellink"), dev)
+        params = model.normalize_weights(
+            model.init_params(torch.Generator().manual_seed(0)))
+        x = torch.from_numpy(np.random.default_rng(1).uniform(
+            0, 255, (2, 256, 384, 3)).astype(np.float32)).to(dev)
+        with torch.no_grad():
+            SPANS.take()
+            got = model.apply(params, x)
+            assert SPANS.take() == {"bfp.fused": fused}
+            monkeypatch.setattr(FCNEngine, "_bfp_roundtrip", torch_roundtrip)
+            monkeypatch.setattr(k2_ops, "quantize_operands", torch_operands)
+            want = model.apply(params, x)
+            assert SPANS.take() == {}
+        for k in ("score", "links", "logits"):
+            assert torch.equal(got[k], want[k]), k
