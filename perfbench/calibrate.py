@@ -8,10 +8,10 @@
 One process, one set-up of CUDA and the kernels; each seed (or rate)
 builds the cell's driver afresh with its own traffic (the weights are
 the configuration's) and runs a short window at the cell's own load.
-For every seed it prints one JSON line: the check's numbers
-(``compare.check``), and for the first ``--control-seeds`` seeds the
-control's: the reference at ``--control-bits`` mantissa bits (int8
-BFP) in the program's place.
+For every seed it prints one JSON line: the check's numbers (the
+family's ``check``), and for the first ``--control-seeds`` seeds the
+control's (its ``control``): for the FCN family the reference at
+``--control-bits`` mantissa bits (int8 BFP) in the program's place.
 With ``--rates`` the open loop runs at each rate instead and the line
 gives offered and completed requests, latency percentiles and how far
 the backlog grew (the mean latency of the window's last fifth over its
@@ -46,8 +46,6 @@ def main(argv=None, *, root=None, device=None) -> int:
     import numpy as np
     import torch
 
-    from perfbench import compare, traffic
-    from perfbench.plain import fcn
     from perfbench.trace import Tracer
 
     device = device or "cuda"
@@ -58,9 +56,9 @@ def main(argv=None, *, root=None, device=None) -> int:
         if rate is not None:
             ctx.traffic = dict(ctx.traffic, rate_per_s=rate)
         dev = torch.device(device)
-        params = fcn.make_params(ctx.layers, ctx.config["weight_seed"],
-                                 dev)
-        pool = traffic.pool(ctx.traffic, seed)
+        fam = ctx.family
+        params = fam.make_params(ctx, dev)
+        pool = fam.pool(ctx)
         t0 = time.perf_counter()
         driver = harness.load_module(
             root / "perfbench" / "drivers" /
@@ -88,13 +86,11 @@ def main(argv=None, *, root=None, device=None) -> int:
                                                    win.stats["batches"]]))
                                     if win.stats.get("batches") else None))
         else:
-            line["checks"] = compare.check(ctx, params, records, pool,
-                                           win.served, win.failed)
+            line["checks"] = fam.check(ctx, params, records, pool,
+                                       win.served, win.failed)
             if n < args.control_seeds:
-                line["control"] = dict(zip(
-                    ("logit_gap_max", "logit_gap_mean"),
-                    compare.control_gaps(ctx, params, records, pool,
-                                         args.control_bits)))
+                line["control"] = fam.control(ctx, params, records, pool,
+                                              args.control_bits)
         print(json.dumps(line), flush=True)
     return 0
 

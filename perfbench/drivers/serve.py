@@ -11,7 +11,8 @@ path, no batcher) back to back; each request is timed from its send.
 
 Set-up warms every (bucket, batch) shape the mix's images reach: each
 bucket at batch 1, and at every power of two up to ``max_batch`` when
-batched, through the same dispatch and box tail, with pool images.
+batched, through the same dispatch and box tail, with pool images; when
+batched, bursts of whole batches through the batcher besides.
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ from perfbench.harness import BenchError, Window
 from perfbench.taps import Tap
 
 MODEL = "pixellink"
+BURSTS = 4
 
 
 def bucket(n: int, buckets) -> int:
@@ -95,9 +97,16 @@ class Driver:
             self.svc(ims[0])
         if self.batched:
             self.svc.start_batched()
-            futs = [self.svc.submit(by_hw[hw][0]) for hw in shapes]
-            for f in futs:
-                f.result(timeout=300)
+            # bursts of whole batches, as many as the batcher holds alive
+            # (one dispatching, ``inflight`` queued, one completing), so that
+            # set-up holds what overlapping batches of ``max_batch`` take;
+            # one burst overlaps them in most runs, not all
+            n = (int(self.mix["inflight"]) + 2) * int(self.mix["max_batch"])
+            for _ in range(BURSTS):
+                futs = [self.svc.submit(ims[i % len(ims)])
+                        for ims in by_hw.values() for i in range(n)]
+                for f in futs:
+                    f.result(timeout=300)
         self._sync()
 
     # -- the window -----------------------------------------------------------

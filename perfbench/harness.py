@@ -6,7 +6,11 @@ piece belonging to one of them is a file found by its name:
 * ``perfbench/workloads/<cell>.json``: the cell's limits for the check
   and how many engine calls its check keeps (``sample_calls``);
 * ``perfbench/configs/<config>.json``: the configuration as it is run,
-  and ``<config>.py`` beside it: its plain layer list, ``layers(cfg)``;
+  and ``<config>.py`` beside it: its plain description, ``layers(cfg)``;
+* ``perfbench/families/<family>.py``: what depends on the model family
+  the configuration names (``family``, ``fcn`` by default): weights,
+  request pool, notes on the results and the check (``families/fcn.py``
+  lists the hooks);
 * ``perfbench/traffic/<traffic>.json``: the mix, read by ``traffic.py``
   and by the driver it names;
 * ``perfbench/drivers/<driver>.py``: one way of driving the program,
@@ -58,14 +62,14 @@ def _json(path: Path) -> Dict[str, Any]:
 
 @dataclasses.dataclass
 class Window:
-    """What a driver's window produced.  ``served``: (pool index, boxes
-    or None for a failed request) per result; ``seconds``: the window's
-    length as measured; ``stats``: the drivers' raw per-layer readings;
-    ``notes``: lines for stderr."""
+    """What a driver's window produced.  ``served``: (pool index, the
+    family's result, or None for a failed request) per result;
+    ``seconds``: the window's length as measured; ``stats``: the drivers'
+    raw per-layer readings; ``notes``: lines for stderr."""
 
     attempted: int
     failed: int
-    served: List[Tuple[int, Optional[List[tuple]]]]
+    served: List[Tuple[int, Optional[Any]]]
     seconds: float
     latencies_s: List[float] = dataclasses.field(default_factory=list)
     images: int = 0
@@ -84,7 +88,8 @@ class Ctx:
     cell: Dict[str, Any]           # perfbench/workloads/<cell>.json
     config: Dict[str, Any]         # the configuration as it is run
     traffic: Dict[str, Any]
-    layers: List[Dict[str, Any]]
+    layers: Any                    # the configuration's plain description
+    family: ModuleType             # perfbench/families/<family>.py
     metrics: List[Dict[str, Any]]  # this run's metric entries
     seed: int
     seconds: float
@@ -105,11 +110,14 @@ def open_cell(root: Path, name: str, seed: int, seconds: float,
     config = _json(cfg_path)
     layers = load_module(cfg_path.with_suffix(".py")).layers(config)
     base = root / "perfbench"
+    family = load_module(base / "families" /
+                         f"{config.get('family', 'fcn')}.py")
     return Ctx(root=root, name=name, entry=entry,
                cell=_json(base / "workloads" / f"{name}.json"),
                config=config,
                traffic=_json(base / "traffic" / f"{entry['traffic']}.json"),
-               layers=layers, metrics=metrics_for(bench, name, trace),
+               layers=layers, family=family,
+               metrics=metrics_for(bench, name, trace),
                seed=int(seed), seconds=float(seconds), trace=bool(trace),
                device=device)
 
@@ -173,17 +181,15 @@ def say(msg: str) -> None:
 
 def run_cell(ctx: Ctx, t_start: float) -> Dict[str, Any]:
     """Set up, measure, check and read one run; returns the result."""
-    import numpy as np
     import torch
 
-    from perfbench import compare, traffic
-    from perfbench.plain import fcn
     from perfbench.trace import Tracer, top
 
     dev = torch.device(ctx.device)
     mix = ctx.traffic
-    params = fcn.make_params(ctx.layers, ctx.config["weight_seed"], dev)
-    pool = traffic.pool(mix, ctx.seed)
+    fam = ctx.family
+    params = fam.make_params(ctx, dev)
+    pool = fam.pool(ctx)
     driver = load_module(ctx.root / "perfbench" / "drivers" /
                          f"{mix['driver']}.py").Driver(ctx, params, pool)
     tracer = Tracer(ctx.trace, dev)
@@ -200,15 +206,10 @@ def run_cell(ctx: Ctx, t_start: float) -> Dict[str, Any]:
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    n_boxes = [len(b) for _, b in win.served if b is not None]
-    if n_boxes:
-        win.notes["components"] = (
-            f"per served image min {min(n_boxes)}, median "
-            f"{float(np.median(n_boxes))}, max {max(n_boxes)}")
+    win.notes.update(fam.notes(win.served))
     for k, v in sorted(win.notes.items()):
         say(f"{k}: {v}")
-    checks = compare.check(ctx, params, records, pool, win.served,
-                           win.failed)
+    checks = fam.check(ctx, params, records, pool, win.served, win.failed)
     rec = {"ctx": ctx, "window": win, "trace": tracer.summary,
            "setup_s": setup_s, "memory_peak_bytes": peak}
     metrics = {}
@@ -219,7 +220,7 @@ def run_cell(ctx: Ctx, t_start: float) -> Dict[str, Any]:
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}
     device = dict(card(dev), count=int(ctx.entry["chips"]),
                   memory_peak_bytes=int(peak))
-    out: Dict[str, Any] = {"correct": compare.passed(checks),
+    out: Dict[str, Any] = {"correct": bool(fam.passed(checks)),
                            "attempted": win.attempted, "failed": win.failed,
                            "metrics": metrics, "device": device}
     if ctx.trace and tracer.summary is not None:
@@ -232,13 +233,13 @@ def run_cell(ctx: Ctx, t_start: float) -> Dict[str, Any]:
     return out
 
 
-def report(out: Dict[str, Any]) -> None:
-    """The checks as the last lines of stderr, the result as the last
-    line of stdout."""
+def report(out: Dict[str, Any], floors) -> None:
+    """The checks as the last lines of stderr (``floors`` name those whose
+    limit is a floor), the result as the last line of stdout."""
     if out["device"]["platform"] == "gpu":
         say(f"card: {power_limit()}")
     for k, v in out["checks"].items():
-        rel = ">=" if k == "images_compared" else "<="
+        rel = ">=" if k in floors else "<="
         print(f"check {k} {v['value']!r} {rel} {v['limit']!r}",
               file=sys.stderr, flush=True)
     print(json.dumps(out), flush=True)

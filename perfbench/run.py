@@ -7,9 +7,10 @@ From the root of a checkout with one NVIDIA GPU per chip the cell asks
 for.  Set-up (weights from the seed on the card, the request pool, the
 cell's own engines warmed, the kernel library from ``build/kernels/``)
 is timed from the process start as ``setup_s``; the window lasts
-``--seconds``; then the check (``compare.py``) runs on what the window
-produced.  With ``--trace 1`` a profiled slice of the window gives the
-per-layer metrics instead of the end-to-end ones.  The last line of
+``--seconds``; then the check of the configuration's family
+(``families/<family>.py``) runs on what the window produced.  With
+``--trace 1`` a profiled slice of the window gives the per-layer metrics
+instead of the end-to-end ones.  The last line of
 stdout is one JSON object: ``correct``, ``attempted``, ``failed``,
 ``metrics``, ``device`` (``breakdown`` with ``--trace 1``) and ``checks``,
 each number compared beside its limit; stderr ends with the same checks.
@@ -71,7 +72,7 @@ def main(argv=None, *, root=None, device=None, t_start=None) -> int:
     if bad:
         harness.say(f"modules of JAX or the JAX package are loaded: {bad}")
         return 4
-    harness.report(out)
+    harness.report(out, ctx.family.FLOORS)
     return 0
 
 

@@ -19,10 +19,11 @@ for _p in (str(REPO / "src"), str(REPO)):
         sys.path.insert(0, _p)
 
 TINY_CELLS = {
-    # cell: (config, traffic, the real cell whose metrics it reports)
+    # cell: (config, traffic, the real cell whose metrics it reports; the
+    # batcher's readers read nothing in the closed loop)
     "tiny-serve-open": ("tiny_vgg16", "tiny_open", "vgg16-serve-poisson"),
     "tiny-serve-closed": ("tiny_vgg16", "tiny_closed", "vgg16-serve-poisson"),
-    "tiny-bulk": ("tiny_resnet50", "tiny_bulk", "resnet50-bulk-512"),
+    "tiny-bulk": ("tiny_resnet50", "tiny_bulk", "resnet50-bulk-768p"),
 }
 TINY_LIMITS = {"logit_gap_max": 0.02, "logit_gap_mean": 0.002}
 
@@ -50,14 +51,16 @@ def make_tiny_root(dst: Path) -> Path:
             "file": f"perfbench/configs/tiny_{bb}.json",
             "reduced": ["width", "merge_ch", "weight_seed"],
             "why": "CPU test"})
-    serve = json.loads((base / "traffic" / "ic15_poisson.json").read_text())
-    serve.update(rate_per_s=10.0, sizes=[[48, 128], [48, 128]], pool=8,
-                 instances_mean=1.5, buckets=[64, 128])
-    write_json(base / "traffic" / "tiny_open.json", serve)
-    write_json(base / "traffic" / "tiny_closed.json",
-               {k: v for k, v in dict(serve, loop="closed").items()
-                if k != "rate_per_s"})
-    bulk = json.loads((base / "traffic" / "ic15_bulk64.json").read_text())
+    small = dict(sizes=[[48, 128], [48, 128]], pool=8, instances_mean=1.5,
+                 buckets=[64, 128])
+    for src, name, extra in (("ic15_poisson", "tiny_open",
+                             {"rate_per_s": 10.0}),
+                             ("ic15_single", "tiny_closed", {})):
+        mix = json.loads((base / "traffic" / f"{src}.json").read_text())
+        write_json(base / "traffic" / f"{name}.json",
+                   dict(mix, **small, **extra))
+    bulk = json.loads(
+        (base / "traffic" / "ic15_bulk32_768p.json").read_text())
     bulk.update(sizes=[[64, 64], [64, 64]], pool=8, instances_mean=1.5,
                 batch=4)
     write_json(base / "traffic" / "tiny_bulk.json", bulk)

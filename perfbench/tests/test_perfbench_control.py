@@ -36,7 +36,7 @@ def test_control_fails_the_tiny_cells_limits(tiny_root):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("workload", ["vgg16-serve-poisson",
-                                      "resnet50-bulk-512"])
+                                      "resnet50-bulk-768p"])
 def test_control_fails_each_cells_limits_on_the_card(cuda, workload):
     limits = json.loads((REPO / "perfbench" / "workloads" /
                          f"{workload}.json").read_text())["limits"]

@@ -150,7 +150,7 @@ def test_refuses_without_a_card_or_the_program(tmp_path, tiny_root):
         err = io.StringIO()
         with contextlib.redirect_stderr(err), \
                 contextlib.redirect_stdout(io.StringIO()) as out:
-            rc = run.main(["--workload", "resnet50-bulk-512", "--seed", "1",
+            rc = run.main(["--workload", "resnet50-bulk-768p", "--seed", "1",
                            "--seconds", "1"], root=REPO)
         assert rc != 0 and out.getvalue() == ""
     # only BENCHMARK.json and perfbench/: the program cannot be imported
