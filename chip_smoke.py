@@ -27,11 +27,15 @@ non-zero before the result line is printed.
    Kimi-K2's prefill (4, Hq 64, Hkv 8, L 512, D 112) in bf16 and f32,
    at InternVL2-76B's (4, Hq 64, Hkv 8, L 768: 256 patches and 512
    tokens, D 128), Grok-1's (4, Hq 48, Hkv 8, L 512, D 128) and Whisper's
-   decoder's (4, H 6, L 64, D 64) in bf16, and at phase 8's InternLM2
-   microbatch (2, Hq 16, Hkv 8, L 512, D 128) in f32 (``K4_CASES``; in f32 q and k
+   decoder's (4, H 6, L 64, D 64) in bf16, at phase 8's InternLM2
+   microbatch (2, Hq 16, Hkv 8, L 512, D 128) in f32, and at the longest
+   batch of the Zamba2-7B prefill cell (8, H 32, L 3840, D 224, scale
+   (224/2)^-0.5) in bf16 (``K4_CASES``; in f32 q and k
    are scaled by 2 and v by 32, where one TF32 term would miss the
-   tolerance); K5 at
-   Zamba2's prefill (BC 16, G 1, HPG 80, Lc 128, N 64, P 64) on the
+   tolerance); K5 (``K5_CASES``) at
+   Zamba2's prefill (BC 16, G 1, HPG 80, Lc 128, N 64, P 64) and at the
+   Zamba2-7B cell's longest batch, whose chunks of 256 ``ssd_scan`` runs
+   as tiles of 128 (BC 240, G 2, HPG 56, Lc 128, N 64, P 64), on the
    strided views ``ssd_scan`` hands it; both against the plain
    version on the same card tensors (K4 atol/rtol 2e-3 in f32, 1.6e-2 in
    bf16, two bf16 ulps; K5 3e-3).
@@ -131,15 +135,17 @@ non-zero before the result line is printed.
 4. LM serving at full width (``phase_lm_serving``), one model of
    ``LM_FAMILIES`` at a time, each freed before the next:
    ``zamba2-2.7b`` (all 54 Mamba2 layers, one shared attention block at
-   9 sites), ``grok-1-314b`` (2 of 64 layers), ``kimi-k2-1t-a32b`` (1 of
+   9 sites), ``zamba2-7b`` (all 81 Mamba2 layers, two shared blocks in
+   turn at 13 sites, head dim 224), ``grok-1-314b`` (2 of 64 layers), ``kimi-k2-1t-a32b`` (1 of
    61), ``internvl2-76b`` (8 of 80; a 256-patch ``prefix_embed`` before
    the prompt) and ``whisper-tiny`` (full: 4 encoder and 4 decoder layers
    over 1500 stub frames).  Seeded bf16 weights drawn on the card, the
    frontend stubs' frames seeded at 0.1 scale in ``input_specs``' shape,
    batch 4, 512-token prompts (whisper 64), then 31 greedy decode steps
    through ``launch/serve_lm``'s ``prefill`` and ``decode`` from
-   ``decode_start``.  The counters are zeroed before the prefill: K4 must
-   run 9 times and K5 54 times for Zamba2, K4 once per decoder layer for
+   ``decode_start``.  The counters are zeroed before each model's
+   prefill: K4 must run 9 times and K5 54 times for Zamba2, 13 and 81
+   times for Zamba2-7B, K4 once per decoder layer for
    the others (Whisper's encoder runs dense, as in the reference), no
    other kernel; decode must add none.  Logits finite and tokens inside
    the vocabulary; prefill ms (median of 3 after the first), decode
@@ -341,7 +347,8 @@ BFP_CASES = (
     ("3x3 weight along Cin", (3, 3, 256, 256), "float32", -2, "roundtrip"),
     ("K2 B along K", (1024, 256), "float32", 0, "quantize"),
 )
-# K4 in phase 1: name, (B, Hq, Hkv, L, D), dtype
+# K4 in phase 1: name, (B, Hq, Hkv, L, D), dtype[, softmax scale (else
+# D^-0.5)]
 K4_CASES = (
     ("zamba2 prefill bf16", (LM_BATCH, 32, 32, LM_PROMPT, 80), "bfloat16"),
     ("zamba2 prefill f32", (LM_BATCH, 32, 32, LM_PROMPT, 80), "float32"),
@@ -357,11 +364,20 @@ K4_CASES = (
     ("internlm2 pipeline f32 D 128", (2, 16, 8, 512, 128), "float32"),
     ("grok-1 prefill bf16 GQA 6", (LM_BATCH, 48, 8, LM_PROMPT, 128),
      "bfloat16"),
-    ("whisper decoder prefill bf16", (LM_BATCH, 6, 6, 64, 64), "bfloat16"))
+    ("whisper decoder prefill bf16", (LM_BATCH, 6, 6, 64, 64), "bfloat16"),
+    ("zamba2-7b prefill bf16 D 224", (8, 32, 32, 3840, 224), "bfloat16",
+     (224 / 2) ** -0.5))
+# K5 in phase 1: name, batch, prompt length, groups, heads, N, P; at the
+# kernel's tile of 128 rows (zamba2-7b's chunks of 256 are two tiles each)
+K5_CASES = (("zamba2 prefill", LM_BATCH, LM_PROMPT, 1, 80, 64, 64),
+            ("zamba2-7b prefill, chunk 256 as tiles of 128", 8, 3840, 2, 112,
+             64, 64))
 # phase 4: arch, decoder layers kept (None: all), prompt length, K4 and K5
 # launches per prefill (Zamba2: 9 shared-attention sites and 54 Mamba2
-# layers; the others: K4 once per decoder layer, Whisper's encoder dense)
+# layers; Zamba2-7B: 13 sites and 81 layers; the others: K4 once per
+# decoder layer, Whisper's encoder dense)
 LM_FAMILIES = (("zamba2-2.7b", None, LM_PROMPT, 9, 54),
+               ("zamba2-7b", None, LM_PROMPT, 13, 81),
                ("grok-1-314b", 2, LM_PROMPT, 2, 0),
                ("kimi-k2-1t-a32b", 1, LM_PROMPT, 1, 0),
                ("internvl2-76b", 8, LM_PROMPT, 8, 0),
@@ -519,8 +535,9 @@ def k3_inputs(torch, cc_cases):
     return cases
 
 
-def k4_inputs(torch, dims, dt, gen):
-    """q, k, v on the card and the call's keywords for a ``K4_CASES`` row.
+def k4_inputs(torch, dims, dt, gen, scale=None):
+    """q, k, v on the card and the call's keywords for a ``K4_CASES`` row
+    (the softmax scale ``scale``, else D^-0.5).
     In f32, q and k are scaled by 2 and v by 32, as in the on-card tests:
     a nearly one-hot softmax over large values, where a kernel with one
     TF32 term misses 2e-3 (at unit scale it passes;
@@ -531,7 +548,8 @@ def k4_inputs(torch, dims, dt, gen):
     q = (torch.randn((B, Hq, L, D), generator=gen, device=dev) * sq).to(dt)
     k = (torch.randn((B, Hkv, L, D), generator=gen, device=dev) * sq).to(dt)
     v = (torch.randn((B, Hkv, L, D), generator=gen, device=dev) * sv).to(dt)
-    return q, k, v, dict(sm_scale=D ** -0.5, causal=True, kv_len=L)
+    return q, k, v, dict(sm_scale=D ** -0.5 if scale is None else scale,
+                         causal=True, kv_len=L)
 
 
 def profile_calls(torch, calls, n: int = 10) -> None:
@@ -894,9 +912,10 @@ def phase_lm_kernels(torch, profile=False):
     gen = torch.Generator(device=dev).manual_seed(1)
     rows = {}
     shapes = []
-    for name, (B, Hq, Hkv, L, D), dt in K4_CASES:
+    for name, (B, Hq, Hkv, L, D), dt, *scale in K4_CASES:
         dt = getattr(torch, dt)
-        q, k, v, geo = k4_inputs(torch, (B, Hq, Hkv, L, D), dt, gen)
+        q, k, v, geo = k4_inputs(torch, (B, Hq, Hkv, L, D), dt, gen,
+                                 *scale)
         got = flash_attention_padded(q, k, v, **geo)
         torch.cuda.synchronize()
         want = flash_attention_plain(q, k, v, **geo)
@@ -907,7 +926,8 @@ def phase_lm_kernels(torch, profile=False):
         t = time_row(torch, lambda: flash_attention_padded(q, k, v, **geo),
                      lambda: flash_attention_plain(q, k, v, **geo),
                      lambda: F.scaled_dot_product_attention(
-                         q, k, v, is_causal=True, enable_gqa=Hq != Hkv))
+                         q, k, v, is_causal=True, scale=geo["sm_scale"],
+                         enable_gqa=Hq != Hkv))
         # causal: half of the 4 B H L^2 D of QK^T and PV; in f32 three
         # TF32 products each (3xTF32), beside the bound of the same work
         # as f32 FMAs on the CUDA cores (the first version's)
@@ -929,46 +949,55 @@ def phase_lm_kernels(torch, profile=False):
             profile_calls(torch, [
                 (f"K4 {name}", lambda: flash_attention_padded(q, k, v, **geo)),
                 (f"sdpa {name}", lambda: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=True, enable_gqa=Hq != Hkv))])
+                    q, k, v, is_causal=True, scale=geo["sm_scale"],
+                    enable_gqa=Hq != Hkv))])
         del q, k, v, got, want
     rows["flash_attention_padded"] = shapes
 
-    # K5 at Zamba2's prefill, on the views ssd_scan hands it
-    # (kernels/ssd_scan/ops.py): operands in (B, nc, Lc, H | G, ...) memory
-    Bz, nc, G, H, Lc, N, P = LM_BATCH, LM_PROMPT // 128, 1, 80, 128, 64, 64
-    BC, HPG = Bz * nc, H // G
-    cm = torch.randn((Bz, nc, Lc, G, N), generator=gen, device=dev) * 0.5
-    bm = torch.randn((Bz, nc, Lc, G, N), generator=gen, device=dev) * 0.5
-    xm = torch.randn((Bz, nc, Lc, H, P), generator=gen, device=dev) * 0.5
-    la = -torch.rand((Bz, nc, Lc, H), generator=gen, device=dev)
-    c = cm.permute(0, 1, 3, 2, 4).reshape(BC, G, Lc, N)
-    b = bm.permute(0, 1, 3, 2, 4).reshape(BC, G, Lc, N)
-    xdt = xm.permute(0, 1, 3, 2, 4).reshape(BC, G, HPG, Lc, P)
-    scum = torch.cumsum(la, dim=2).permute(0, 1, 3, 2).reshape(
-        BC, G, HPG, Lc, 1)
-    y, st = ssd_chunk(c, b, xdt, scum)
-    torch.cuda.synchronize()
-    wy, wst = ssd_chunk_plain(c, b, xdt, scum)
-    err = max(float((y - wy).abs().max()), float((st - wst).abs().max()))
-    if not (torch.allclose(y, wy, atol=3e-3, rtol=3e-3)
-            and torch.allclose(st, wst, atol=3e-3, rtol=3e-3)):
-        fail(f"K5: kernel differs from plain (max abs {err})")
-    t = time_row(torch, lambda: ssd_chunk(c, b, xdt, scum),
-                 lambda: ssd_chunk_plain(c, b, xdt, scum))
-    # cb once per (chunk, group), then y and the chunk-end state per head;
-    # cb and W = cb * decay are lower-triangular, so cb and y count the
-    # Lc (Lc + 1) / 2 entries t >= s, at 2 operations each; three TF32
-    # products each (3xTF32)
-    flops = 1.0 * BC * G * Lc * (Lc + 1) * N + 1.0 * BC * G * HPG * (
-        Lc * (Lc + 1) * P + 2 * P * N * Lc)
-    bms, by = bound(nbytes(c, b, xdt, scum, y, st), 3 * flops, TF32_PEAK)
-    rows["ssd_chunk"] = [dict(
-        shape=f"zamba2 prefill BC={BC} G={G} HPG={HPG} Lc={Lc} N={N} P={P}",
-        max_abs_err=err, **t, bound_ms=bms, bound_by=by)]
-    log(f"K5 ssd_chunk: max_abs_err={err:.3g} {fmt_times(t)} "
-        f"bound {bms:.4f} ms ({by})")
-    if profile:
-        profile_calls(torch, [("K5", lambda: ssd_chunk(c, b, xdt, scum))])
+    # K5 at Zamba2's and Zamba2-7B's prefill, on the views ssd_scan hands
+    # it (kernels/ssd_scan/ops.py): operands in (B, nc, Lc, H | G, ...)
+    # memory
+    shapes = []
+    for name, Bz, L, G, H, N, P in K5_CASES:
+        Lc = 128
+        nc = L // Lc
+        BC, HPG = Bz * nc, H // G
+        cm = torch.randn((Bz, nc, Lc, G, N), generator=gen, device=dev) * 0.5
+        bm = torch.randn((Bz, nc, Lc, G, N), generator=gen, device=dev) * 0.5
+        xm = torch.randn((Bz, nc, Lc, H, P), generator=gen, device=dev) * 0.5
+        la = -torch.rand((Bz, nc, Lc, H), generator=gen, device=dev)
+        c = cm.permute(0, 1, 3, 2, 4).reshape(BC, G, Lc, N)
+        b = bm.permute(0, 1, 3, 2, 4).reshape(BC, G, Lc, N)
+        xdt = xm.permute(0, 1, 3, 2, 4).reshape(BC, G, HPG, Lc, P)
+        scum = torch.cumsum(la, dim=2).permute(0, 1, 3, 2).reshape(
+            BC, G, HPG, Lc, 1)
+        y, st = ssd_chunk(c, b, xdt, scum)
+        torch.cuda.synchronize()
+        wy, wst = ssd_chunk_plain(c, b, xdt, scum)
+        err = max(float((y - wy).abs().max()), float((st - wst).abs().max()))
+        if not (torch.allclose(y, wy, atol=3e-3, rtol=3e-3)
+                and torch.allclose(st, wst, atol=3e-3, rtol=3e-3)):
+            fail(f"K5 {name}: kernel differs from plain (max abs {err})")
+        t = time_row(torch, lambda: ssd_chunk(c, b, xdt, scum),
+                     lambda: ssd_chunk_plain(c, b, xdt, scum))
+        # cb once per (chunk, group), then y and the chunk-end state per
+        # head; cb and W = cb * decay are lower-triangular, so cb and y
+        # count the Lc (Lc + 1) / 2 entries t >= s, at 2 operations each;
+        # three TF32 products each (3xTF32)
+        flops = 1.0 * BC * G * Lc * (Lc + 1) * N + 1.0 * BC * G * HPG * (
+            Lc * (Lc + 1) * P + 2 * P * N * Lc)
+        bms, by = bound(nbytes(c, b, xdt, scum, y, st), 3 * flops,
+                        TF32_PEAK)
+        shapes.append(dict(
+            shape=f"{name} BC={BC} G={G} HPG={HPG} Lc={Lc} N={N} P={P}",
+            max_abs_err=err, **t, bound_ms=bms, bound_by=by))
+        log(f"K5 {name}: max_abs_err={err:.3g} {fmt_times(t)} "
+            f"bound {bms:.4f} ms ({by})")
+        if profile:
+            profile_calls(torch, [(f"K5 {name}",
+                                   lambda: ssd_chunk(c, b, xdt, scum))])
+        del cm, bm, xm, la, c, b, xdt, scum, y, st, wy, wst
+    rows["ssd_chunk"] = shapes
     return rows
 
 

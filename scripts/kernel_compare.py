@@ -70,7 +70,7 @@ def main():
         args = [t.to(dev) for t in k3[name]]
         calls[f"K3 {name}"] = lambda a=args: local_spread_converge(*a)
     gen = torch.Generator(device=dev).manual_seed(1)
-    for name, dims, dt in chip_smoke.K4_CASES:
+    for name, dims, dt, *_ in chip_smoke.K4_CASES:
         if dt == "float32":
             q, k, v, geo = chip_smoke.k4_inputs(torch, dims, torch.float32,
                                                 gen)

@@ -23,6 +23,7 @@ ARCH_MODULES: Dict[str, str] = {
     "internvl2-76b": "internvl2_76b",
     "zamba2-2.7b": "zamba2_2_7b",
     "mamba2-370m": "mamba2_370m",
+    "zamba2-7b": "zamba2_7b",
 }
 
 ARCH_IDS: List[str] = list(ARCH_MODULES)

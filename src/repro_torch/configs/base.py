@@ -3,7 +3,9 @@
 Every LM architecture is a module ``configs/<id>.py`` exporting
 ``CONFIG`` (the published hyperparameters) and ``SMOKE`` (a reduced
 config of the same family for CPU tests).  The fields and their defaults
-are those of the reference's ``ArchConfig``.
+are those of the reference's ``ArchConfig``, and the port's own for a
+hybrid stack with explicit sites (zamba2-7b, which the reference lacks),
+whose defaults leave every other arch as the reference builds it.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ class ArchConfig:
     head_dim: int = 0              # 0 -> d_model // n_heads
     qkv_bias: bool = False
     norm: str = "rmsnorm"          # rmsnorm|layernorm
-    act: str = "swiglu"            # swiglu|gelu
+    act: str = "swiglu"            # swiglu|gelu|geglu (exact GELU gate)
     rope_theta: float = 10000.0
     tie_embeddings: bool = False
     # --- MoE ---
@@ -44,6 +46,16 @@ class ArchConfig:
     # --- hybrid (zamba2-style shared attention blocks) ---
     attn_every: int = 0            # 0 = pure family; k = shared attn block
                                    # after every k SSM layers
+    # --- hybrid with explicit sites (zamba2-7b) ---
+    # site s (before SSM layer hybrid_layer_ids[s]) runs shared block
+    # s % num_mem_blocks over concat(hidden, embeddings); its output,
+    # through the site's own linear, joins that layer's SSM input
+    hybrid_layer_ids: Tuple[int, ...] = ()
+    num_mem_blocks: int = 1
+    attn_scale: float = 0.0        # 0 -> hd ** -0.5
+    adapter_rank: int = 0          # per-site low-rank term of the shared
+                                   # MLP's gate/up projection
+    norm_eps: float = 1e-6
     # --- enc-dec / prefix frontends (whisper / internvl stubs) ---
     encoder_layers: int = 0
     cross_attn: bool = False
@@ -70,6 +82,16 @@ class ArchConfig:
     @property
     def ssm_heads(self) -> int:
         return self.d_inner // self.ssm_headdim
+
+    @property
+    def attn_in(self) -> int:
+        """Width of the attention input: concat(hidden, embeddings) at
+        explicit hybrid sites, else the hidden width."""
+        return 2 * self.d_model if self.hybrid_layer_ids else self.d_model
+
+    @property
+    def sm_scale(self) -> float:
+        return self.attn_scale or self.hd ** -0.5
 
     @property
     def is_attention_free(self) -> bool:

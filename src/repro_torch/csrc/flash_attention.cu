@@ -34,14 +34,24 @@
 //   register-A fragment of O += P V (`wgmma` m64nNk16, V the MN-major B
 //   operand in shared memory), as two bf16 terms (below); O is rescaled
 //   by alpha in registers;
-// - the head dim is loaded as one or two 64-column TMA boxes (DH halves);
+// - the head dim is loaded as one, two or four 64-column TMA boxes (DH);
 //   the hardware zero-fills columns D..64*DH-1 and KV rows past Lkv, and
 //   Q K^T runs its k16 steps only up to D rounded up to 16.  Any D that is
-//   a multiple of 8 up to 128 is taken (24, 64, 80, 112, 128 in the
-//   configs).  Shared memory per block: (1 + 2 * 2 stages) * DH * 8 KB +
-//   1 KB of alignment slack + 40 B of barriers = 42,024 B for DH 1 and
-//   82,984 B for D = 128 (DH 2), under the 227 KB a block may use, so two
-//   blocks share an SM;
+//   a multiple of 8 up to 256 is taken (24, 64, 80, 112, 128 and
+//   Zamba2-7B's 224 in the configs).  Shared memory per block: (1 + 2 * 2
+//   stages) * DH * 8 KB + 1 KB of alignment slack + 40 B of barriers =
+//   42,024 B for DH 1, 82,984 B for D = 128 (DH 2), under the 227 KB a
+//   block may use, so two blocks share an SM; 164,904 B for D = 224 (DH
+//   4), one block an SM;
+// - DH 4 (D 136-256): O is 128 f32 accumulators a thread, and P V runs
+//   as two m64n128k16 products per k16 step and term, over the first and
+//   the last two atoms of V.  At D = 224 the fourth box is half zeros, so
+//   P V does 8/7 of the needed products (the stores skip those columns).
+//   What bounds it on an H100 at the Zamba2-7B shape (B 8, H 32, L 3840,
+//   D 224, causal): 2 x 2 x 8 x 32 x 3840^2 x 224 / 2 = 1.69 TFLOP for
+//   Q K^T and P V, 1.71 ms at the bf16 peak, against 1.76 GB of
+//   q/k/v/o, 0.53 ms, so operations bound it; the lo term of P adds half
+//   again to the products the kernel issues;
 // - masks (c >= kv_len, c > r) are applied in registers, on the tiles
 //   that hold a masked column only; the KV sweep stops at the causal
 //   limit and at kv_len; rows past Lq are not stored;
@@ -110,7 +120,8 @@ namespace {
 
 constexpr int BM = 64;          // query rows per block
 constexpr int BN = 64;          // KV rows per step
-constexpr int DMAX = 128;
+constexpr int DMAX = 128;       // the f32 kernel's largest head dim
+constexpr int WG_DMAX = 256;    // the bf16 kernel's: four 64-column boxes
 constexpr float NEG_INF = -1e30f;
 
 // ---------------------------------------------------------------------------
@@ -273,7 +284,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 template <int DH>
-__global__ void __launch_bounds__(WG_THREADS, DH == 1 ? 3 : 2)
+__global__ void __launch_bounds__(WG_THREADS, DH == 1 ? 3 : DH == 2 ? 2 : 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv,
@@ -433,9 +444,19 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       if constexpr (DH == 1) {
         wgmma_m64n64k16_rs(o, pa + 4 * k, dv);
         wgmma_m64n64k16_rs(o, pl + 4 * k, dv);
-      } else {
+      } else if constexpr (DH == 2) {
         wgmma_m64n128k16_rs(o, pa + 4 * k, dv);
         wgmma_m64n128k16_rs(o, pl + 4 * k, dv);
+      } else {
+        // four atoms: columns 0-127 and 128-255 as two n128 products, the
+        // second from the third atom on (its accumulators o[64..127] hold
+        // columns 128 + 8j + c as o[0..63] hold 8j + c)
+        const uint64_t dv2 =
+            smem_desc(v_addr + k * 2048 + 2 * HALF_BYTES, HALF_BYTES);
+        wgmma_m64n128k16_rs(o, pa + 4 * k, dv);
+        wgmma_m64n128k16_rs(o, pl + 4 * k, dv);
+        wgmma_m64n128k16_rs(o + 64, pa + 4 * k, dv2);
+        wgmma_m64n128k16_rs(o + 64, pl + 4 * k, dv2);
       }
     }
     wgmma_commit();
@@ -821,22 +842,25 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
 }  // namespace
 
 // dtype: 0 = float32 (3xTF32 mma.sync, any D up to 128), 1 = bfloat16
-// (wgmma, D a multiple of 8)
+// (wgmma, D a multiple of 8 up to 256)
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* out, int B, int Hq,
                                    int Hkv, int Lq, int Lkv, int D,
                                    int kv_len, float scale, int causal,
                                    int dtype, cudaStream_t stream) {
-  if (D < 1 || D > DMAX || Hkv < 1 || Hq % Hkv != 0 || kv_len < 1)
+  if (D < 1 || Hkv < 1 || Hq % Hkv != 0 || kv_len < 1)
     return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
+  if (dtype == 0 && D <= DMAX)
     return launch_f32(q, k, v, out, B, Hq, Hkv, Lq, Lkv, D, kv_len, scale,
                       causal, stream);
-  if (dtype == 1 && D % 8 == 0) {
+  if (dtype == 1 && D % 8 == 0 && D <= WG_DMAX) {
     if (D <= 64)
       return launch_wgmma<1>(q, k, v, out, B, Hq, Hkv, Lq, Lkv, D, kv_len,
                              scale, causal, stream);
-    return launch_wgmma<2>(q, k, v, out, B, Hq, Hkv, Lq, Lkv, D, kv_len,
+    if (D <= 128)
+      return launch_wgmma<2>(q, k, v, out, B, Hq, Hkv, Lq, Lkv, D, kv_len,
+                             scale, causal, stream);
+    return launch_wgmma<4>(q, k, v, out, B, Hq, Hkv, Lq, Lkv, D, kv_len,
                            scale, causal, stream);
   }
   return (int)cudaErrorInvalidValue;

@@ -5,7 +5,7 @@ default); :func:`flash_attention_padded` runs the kernel on a CUDA tensor
 (``csrc/flash_attention.cu``) and :func:`flash_attention_plain` on a CPU
 tensor.  The CUDA kernel masks a ragged length itself, so nothing is
 padded.  In bf16 it runs on the tensor cores (``wgmma``, K/V fed by TMA)
-and takes any head dim that is a multiple of 8 up to 128
+and takes any head dim that is a multiple of 8 up to 256
 (:func:`wgmma_geometry`); in f32 it runs on the TF32 tensor cores in
 3xTF32 (each operand split into two TF32 terms, three ``mma.sync`` per
 product, f32-accurate) and takes any head dim up to 128.
@@ -26,17 +26,22 @@ KV_STAGES = 2               # K/V ring depth of the bf16 kernel
 HALF_BYTES = 64 * 128       # one 64-row box of 64 bf16 columns
 
 
+BF16_DMAX = 256             # the bf16 kernel's largest head dim
+F32_DMAX = 128              # the f32 kernel's
+
+
 def wgmma_geometry(head_dim: int) -> tuple:
-    """(64-column halves, shared-memory bytes per block) of the bf16
+    """(64-column boxes, shared-memory bytes per block) of the bf16
     kernel at this head dim (csrc/flash_attention.cu:wg_smem_bytes): Q
-    and a ring of K and V tiles, each one or two 64-column TMA boxes,
-    1 KB of alignment slack and the mbarriers.  Raises for a head dim
-    the kernel does not take."""
-    if head_dim % 8 or not 8 <= head_dim <= 128:
+    and a ring of K and V tiles, each one, two or four 64-column TMA
+    boxes (four for a head dim over 128, Zamba2-7B's 224), 1 KB of
+    alignment slack and the mbarriers.  Raises for a head dim the kernel
+    does not take."""
+    if head_dim % 8 or not 8 <= head_dim <= BF16_DMAX:
         raise ValueError(f"flash_attention bf16 kernel takes a head dim "
-                         f"that is a multiple of 8 up to 128, got "
+                         f"that is a multiple of 8 up to {BF16_DMAX}, got "
                          f"{head_dim}")
-    halves = 1 if head_dim <= 64 else 2
+    halves = 1 if head_dim <= 64 else 2 if head_dim <= 128 else 4
     smem = (1 + 2 * KV_STAGES) * halves * HALF_BYTES + 1024 \
         + 8 * (1 + 2 * KV_STAGES)
     return halves, smem
@@ -83,9 +88,11 @@ def flash_attention_padded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                      causal=causal, kv_len=kv_len)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    if q.dtype not in _DTYPES or D > 128:
-        raise ValueError(f"flash_attention kernel takes f32 or bf16 with "
-                         f"head dim <= 128, got {q.dtype}, D={D}")
+    if q.dtype not in _DTYPES or D > (BF16_DMAX if q.dtype == torch.bfloat16
+                                      else F32_DMAX):
+        raise ValueError(f"flash_attention kernel takes bf16 with head dim "
+                         f"<= {BF16_DMAX} or f32 with head dim <= "
+                         f"{F32_DMAX}, got {q.dtype}, D={D}")
     for t in (q, k, v):
         if t.device != q.device or t.dtype != q.dtype or not t.is_contiguous():
             raise ValueError("flash_attention takes contiguous q, k, v of "
@@ -121,15 +128,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, cache_len) -> torch.Tensor:
+                     v_cache: torch.Tensor, cache_len, *,
+                     sm_scale: float | None = None) -> torch.Tensor:
     """One new token against a KV cache: q (B, Hq, 1, D), caches (B, Hkv,
-    S, D), ``cache_len`` valid positions (an int or a (B,) tensor)."""
+    S, D), ``cache_len`` valid positions (an int or a (B,) tensor); the
+    scale is ``D ** -0.5`` unless given."""
+    if sm_scale is None:
+        sm_scale = float(q.shape[-1]) ** -0.5
     B, Hq, _, D = q.shape
     _, Hkv, S, _ = k_cache.shape
     group = Hq // Hkv
     qg = q.reshape(B, Hkv, group, D)
     s = torch.einsum("bhgd,bhsd->bhgs", qg.to(torch.float32),
-                     k_cache.to(torch.float32)) * (float(D) ** -0.5)
+                     k_cache.to(torch.float32)) * sm_scale
     pos = torch.arange(S, device=q.device)[None, None, None, :]
     lim = torch.as_tensor(cache_len, device=q.device)
     lim = lim.reshape(-1, 1, 1, 1) if lim.dim() else lim

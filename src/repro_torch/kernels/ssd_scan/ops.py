@@ -18,6 +18,7 @@ import torch
 from repro_torch.kernels import build, refuse_autograd
 
 F32 = torch.float32
+KERNEL_CHUNK = 128          # the kernel's largest chunk (Lc) and d_state
 
 
 def ssd_chunk_plain(c, b, xdt, scum):
@@ -62,7 +63,7 @@ def ssd_chunk(c: torch.Tensor, b: torch.Tensor, xdt: torch.Tensor,
             raise ValueError("ssd_chunk takes f32 tensors on one device")
     if c.stride(-1) != 1 or b.stride(-1) != 1 or xdt.stride(-1) != 1:
         raise ValueError("ssd_chunk takes views whose innermost stride is 1")
-    if Lc > 128 or N > 128 or P > 64:
+    if Lc > KERNEL_CHUNK or N > KERNEL_CHUNK or P > 64:
         raise ValueError(f"ssd_chunk kernel takes Lc <= 128, N <= 128 and "
                          f"P <= 64, got Lc={Lc} N={N} P={P}")
     y = torch.empty((BC, Lc, G, HPG, P), device=c.device,
@@ -136,7 +137,11 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              chunk: int = 128, return_state: bool = False):
     """x (B, L, H, P), dt (B, L, H) (softplus applied), A (H,) negative,
     Bm/Cm (B, L, G, N), D (H,) -> y (B, L, H, P) f32, and with
-    ``return_state`` also the final state (B, H, P, N)."""
+    ``return_state`` also the final state (B, H, P, N).  A chunk longer
+    than the kernel's ``KERNEL_CHUNK`` rows runs as tiles of
+    ``KERNEL_CHUNK`` (zamba2-7b's 256 as two of 128): the chunked scan is
+    the same function at any chunk length."""
+    chunk = min(chunk, KERNEL_CHUNK)
     xf, scum, xdt, Bc, Cc = chunk_operands(x, dt, A, Bm, Cm, chunk)
     Bsz, nc, Lc, H, P = xdt.shape
     G, N = Bc.shape[3], Bc.shape[4]

@@ -3,7 +3,11 @@ optionally with BFP-stored weights (paper C2 as a serving-bandwidth
 feature).
 
 Prefill runs attention through K4 (``use_flash``) and the Mamba2 scan
-through K5 (``use_kernel``); decode is torch ops.  On the CPU (smoke):
+through K5 (``use_kernel``); decode is torch ops.  While a profile is
+active (``runtime/telemetry.SPANS``) each prefill is an ``lm.prefill``
+span counting ``tokens``, ``batch`` and the K4 and K5 launches it made
+(``k4.launches``, ``k5.launches``); a stack with explicit hybrid sites
+adds ``lm.shared`` and ``lm.mamba`` beneath it.  On the CPU (smoke):
 
     PYTHONPATH=src python -m repro_torch.launch.serve_lm --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve_lm --device cpu \
@@ -25,8 +29,11 @@ import torch
 from repro_torch.configs import (SHAPES, ArchConfig, get_smoke_config,
                                  input_specs)
 from repro_torch.core.device import resolve_device
+from repro_torch.kernels.flash_attention.ops import flash_attention_padded
+from repro_torch.kernels.ssd_scan.ops import ssd_chunk
 from repro_torch.models.lm import LMModel
 from repro_torch.models.lm import params as params_lib
+from repro_torch.runtime.telemetry import SPANS
 
 PREFILL_CTX = {"use_flash": True, "use_kernel": True}
 PREFIX_SCALE = 0.1      # the stub frames' scale, as the reference's tests draw
@@ -59,10 +66,20 @@ def prefill(model: LMModel, params, prompts: torch.Tensor, max_len: int,
     f32, cache sized for ``max_len`` positions).  ``prefix_embed`` is the
     frontend stub's output for ``audio`` and ``vlm``; decode continues at
     ``decode_start(model.cfg, L)``."""
-    logits, cache = model.forward(params, prompts, prefix_embed=prefix_embed,
-                                  mode="serve", cache_out=True,
-                                  max_len=max_len, ctx_extra=PREFILL_CTX)
-    return logits[:, -1, :].argmax(-1).to(torch.int32), logits, cache
+    k4, k5 = flash_attention_padded.launches, ssd_chunk.launches
+    span = SPANS.begin("lm.prefill")
+    try:
+        logits, cache = model.forward(params, prompts,
+                                      prefix_embed=prefix_embed,
+                                      mode="serve", cache_out=True,
+                                      max_len=max_len, ctx_extra=PREFILL_CTX)
+        tok = logits[:, -1, :].argmax(-1).to(torch.int32)
+    finally:
+        SPANS.end(span, counts={
+            "tokens": prompts.numel(), "batch": prompts.shape[0],
+            "k4.launches": flash_attention_padded.launches - k4,
+            "k5.launches": ssd_chunk.launches - k5})
+    return tok, logits, cache
 
 
 @torch.no_grad()

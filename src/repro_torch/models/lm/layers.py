@@ -126,9 +126,10 @@ def rmsnorm_meta(d: int, dtype) -> Dict[str, ParamMeta]:
 
 
 def rmsnorm(p, x, *, mc=None, table=None, ctx=None):
+    """table: ``eps`` (1e-6 unless given)."""
     xf = x.to(F32)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    y = xf * torch.rsqrt(var + 1e-6)
+    y = xf * torch.rsqrt(var + (table or {}).get("eps", 1e-6))
     return (y * p["scale"].to(F32)).to(x.dtype)
 
 
@@ -174,7 +175,11 @@ def lm_head(p, x, *, mc=None, table=None, ctx=None):
 # ---------------------------------------------------------------------------
 
 def attention_meta(d_model: int, n_heads: int, n_kv: int, head_dim: int,
-                   dtype, qkv_bias: bool = False) -> Dict[str, ParamMeta]:
+                   dtype, qkv_bias: bool = False,
+                   d_out: Optional[int] = None) -> Dict[str, ParamMeta]:
+    """Projections of a ``d_model``-wide input; the output is ``d_out``
+    wide (``d_model`` unless given)."""
+    d_out = d_out or d_model
     m = {
         "wq": ParamMeta((d_model, n_heads, head_dim), dtype, init="scaled",
                         prefs=((1, "model"), (0, "data"))),
@@ -182,7 +187,7 @@ def attention_meta(d_model: int, n_heads: int, n_kv: int, head_dim: int,
                         prefs=((1, "model"), (0, "data"))),
         "wv": ParamMeta((d_model, n_kv, head_dim), dtype, init="scaled",
                         prefs=((1, "model"), (0, "data"))),
-        "wo": ParamMeta((n_heads, head_dim, d_model), dtype, init="scaled",
+        "wo": ParamMeta((n_heads, head_dim, d_out), dtype, init="scaled",
                         prefs=((0, "model"), (2, "data"))),
     }
     if qkv_bias:
@@ -210,8 +215,10 @@ def _proj_qkv(p, x, table):
     return q, k, v
 
 
-def _sdpa_full(q, k, v, *, causal: bool, shard=None) -> torch.Tensor:
-    """(B, L, H, hd) x (B, S, K, hd) dense attention with GQA broadcast.
+def _sdpa_full(q, k, v, *, causal: bool, shard=None,
+               scale: Optional[float] = None) -> torch.Tensor:
+    """(B, L, H, hd) x (B, S, K, hd) dense attention with GQA broadcast,
+    scores scaled by ``scale`` (hd ** -0.5 unless given).
     The probabilities are rounded to the compute type before P.V, as in
     the reference; queries go in chunks of ``Q_CHUNK`` rows so that one
     (B, H, chunk, S) score block is live at a time.  ``shard`` is the
@@ -223,7 +230,7 @@ def _sdpa_full(q, k, v, *, causal: bool, shard=None) -> torch.Tensor:
     vf = v.repeat_interleave(g, dim=2) if g > 1 else v
     if shard is not None:
         q, kf, vf = (shard(t, "blhd") for t in (q, kf, vf))
-    scale = hd ** -0.5
+    scale = hd ** -0.5 if scale is None else scale
     chunk = min(Q_CHUNK, L)
 
     def attend(qc, row0):
@@ -273,9 +280,10 @@ def _kv_read(cache, dtype):
 
 
 def attention(p, x, *, mc=None, table=None, ctx=None):
-    """Self-attention.  table: n_heads, n_kv, head_dim, rope_theta, causal.
-    ctx: positions (B, L); mode 'full' | 'decode'; cache {k, v} (B, S, K,
-    hd); cache_len; use_flash (prefill through K4)."""
+    """Self-attention.  table: n_heads, n_kv, head_dim, rope_theta, causal,
+    scale (hd ** -0.5 unless given).  ctx: positions (B, L); mode 'full' |
+    'decode'; cache {k, v} (B, S, K, hd); cache_len; use_flash (prefill
+    through K4)."""
     table = table or {}
     ctx = ctx if ctx is not None else {}
     q, k, v = _proj_qkv(p, x, table)
@@ -287,13 +295,15 @@ def attention(p, x, *, mc=None, table=None, ctx=None):
         q = rope(q, positions, theta)
         k = rope(k, positions, theta)
     q, k, v = q.to(x.dtype), k.to(x.dtype), v.to(x.dtype)
+    scale = table.get("scale")
 
     if ctx.get("mode", "full") == "decode":
         pos = ctx["cache_len"]
         ctx["cache"] = _kv_write(ctx["cache"], k, v, pos)
         kc, vc = _kv_read(ctx["cache"], q.dtype)
         o = decode_attention(q.transpose(1, 2), kc.transpose(1, 2),
-                             vc.transpose(1, 2), pos + 1).transpose(1, 2)
+                             vc.transpose(1, 2), pos + 1,
+                             sm_scale=scale).transpose(1, 2)
     else:
         if "cache" in ctx:
             # prefill: the full-sequence K/V go into the cache for decode
@@ -304,9 +314,10 @@ def attention(p, x, *, mc=None, table=None, ctx=None):
             o = flash_attention(q.transpose(1, 2).contiguous(),
                                 k.transpose(1, 2).contiguous(),
                                 v.transpose(1, 2).contiguous(),
-                                causal=causal).transpose(1, 2)
+                                sm_scale=scale, causal=causal).transpose(1, 2)
         else:
-            o = _sdpa_full(q, k, v, causal=causal, shard=ctx.get("shard"))
+            o = _sdpa_full(q, k, v, causal=causal, shard=ctx.get("shard"),
+                           scale=scale)
     h, hd, m = p["wo"].shape
     out = matmul_f32(o.to(x.dtype).reshape(*o.shape[:2], h * hd),
                      p["wo"].reshape(h * hd, m)).to(x.dtype)
@@ -344,10 +355,32 @@ def glu_mlp_meta(d: int, f: int, dtype) -> Dict[str, ParamMeta]:
     }
 
 
+def adapter_meta(d: int, rank: int, width: int, dtype
+                 ) -> Dict[str, ParamMeta]:
+    """A low-rank term x @ a @ b, (d, rank) then (rank, width)."""
+    return {"a": ParamMeta((d, rank), dtype, init="scaled"),
+            "b": ParamMeta((rank, width), dtype, init="scaled")}
+
+
 def glu_mlp(p, x, *, mc=None, table=None, ctx=None):
+    """down(act(x wg) * (x wu)); table ``act``: ``silu`` (SwiGLU, the
+    default) or ``gelu`` (exact, erf).  With an ``adapter`` leaf {a, b}
+    (rank r, b (r, 2 d_ff)) the gate and up projections gain
+    (x a) b's first and second halves."""
+    table = table or {}
     g = dot(x, p["wg"], table)
     u = dot(x, p["wu"], table)
-    h = (F.silu(g) * u).to(x.dtype)
+    if "adapter" in p:
+        lo = dot(dot(x, p["adapter"]["a"], table).to(x.dtype),
+                 p["adapter"]["b"], table)
+        f = g.shape[-1]
+        g = g + lo[..., :f]
+        u = u + lo[..., f:]
+    if table.get("act", "silu") == "gelu":
+        act = F.gelu(g, approximate="none")
+    else:
+        act = F.silu(g)
+    h = (act * u).to(x.dtype)
     return dot(h, p["wd"], table).to(x.dtype)
 
 

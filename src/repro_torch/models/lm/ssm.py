@@ -1,11 +1,12 @@
-"""Mamba2 (SSD) datapath module: zamba2-2.7b and mamba2-370m.
+"""Mamba2 (SSD) datapath module: zamba2-2.7b, zamba2-7b and mamba2-370m.
 
 Block layout (arXiv:2405.21060):
     in_proj -> [z | x | B | C | dt]
     causal conv1d (width 4) over [x | B | C], silu
     dt = softplus(dt + dt_bias);  A = -exp(A_log)
     y  = SSD(x, dt, A, B, C, D)          (kernels/ssd_scan)
-    y  = RMSNorm(y * silu(z)) -> out_proj
+    y  = RMSNorm(y * silu(z)) -> out_proj   (per group of d_inner / G
+                                           where the config says so)
 
 Decode carries (conv_state, ssm_state) in the cache, O(1) per token.
 With ``ctx['use_kernel']`` the full-sequence scan runs through K5
@@ -68,7 +69,8 @@ def _causal_conv(xc, w, b):
 
 def mamba2_block(p, x, *, mc=None, table=None, ctx=None):
     """x: (B, L, D).  table: d_inner, n_heads, n_groups, d_state, headdim,
-    conv_width, chunk.  ctx mode 'full' | 'decode' (cache: conv (B, W-1,
+    conv_width, chunk; norm_groups (1 unless given) and eps of the gated
+    norm.  ctx mode 'full' | 'decode' (cache: conv (B, W-1,
     d_conv), ssm (B, H, P, N))."""
     table = table or {}
     ctx = ctx if ctx is not None else {}
@@ -132,7 +134,12 @@ def mamba2_block(p, x, *, mc=None, table=None, ctx=None):
 
     y = y.reshape(Bsz, L, d_inner).to(x.dtype)
     y = y * F.silu(z.to(F32)).to(x.dtype)
-    y = rmsnorm({"scale": p["norm_scale"]}, y)
+    # the gated norm, over each of ``norm_groups`` equal slices of d_inner
+    ng = int(table.get("norm_groups", 1))
+    y = rmsnorm({"scale": p["norm_scale"].reshape(ng, d_inner // ng)},
+                y.reshape(Bsz, L, ng, d_inner // ng),
+                table={"eps": table.get("eps", 1e-6)}).reshape(Bsz, L,
+                                                              d_inner)
     return matmul_f32(_maybe_bfp(y, table),
                       p["out_proj"].to(x.dtype)).to(x.dtype)
 

@@ -7,7 +7,13 @@ module registry, one layer at a time.
   ssm     : [id.cache, norm, ssd.add] x L                  (mamba2)
   hybrid  : ssm blocks + a SHARED attention block every k layers; the
             shared block's words carry the same binding name at every
-            call site, so one weight copy serves them all (zamba2)
+            call site, so one weight copy serves them all (zamba2-2.7b)
+  sites   : hybrid with explicit sites (``hybrid_layer_ids``): before
+            each site's ssm layer, shared block s % num_mem_blocks over
+            concat(hidden, embeddings), [norm, attn, norm, glu_mlp]
+            with no residual, then the site's own linear, added to the
+            ssm layer's input (zamba2-7b); spans ``lm.shared`` (counts
+            ``block``, ``site``) and ``lm.mamba`` while tracing
   audio   : a non-causal encoder over the frontend stub's frames, and a
             decoder with cross-attention to its output     (whisper)
   vlm     : the frontend stub's patch embeddings before the token
@@ -39,6 +45,7 @@ from repro_torch.core import bfp as bfp_lib
 from repro_torch.core.device import resolve_device
 from repro_torch.core.interpreter import build_stream_fn
 from repro_torch.core.microcode import ExtOp, Microcode, ResOp
+from repro_torch.runtime.telemetry import SPANS
 
 from . import layers as L
 from . import moe as moe_mod
@@ -182,6 +189,58 @@ def ssm_block_stream(cfg: ArchConfig, prefix="") -> Stream:
     return b.build()
 
 
+def site_mamba_stream(cfg: ArchConfig) -> Stream:
+    """[norm, ssd]: a Mamba2 layer of a stack with explicit hybrid sites,
+    without its residual, its gated norm per group of d_inner / G.  The
+    caller adds the layer's input h to the result of the stream on h + t,
+    t the site's injection (zero off the sites), so the injection reaches
+    the SSM's input and not the residual."""
+    b = StreamBuilder(cfg)
+    ntbl = b.table(eps=cfg.norm_eps)
+    tbl = b.table(
+        d_inner=cfg.d_inner, n_heads=cfg.ssm_heads, n_groups=cfg.ssm_groups,
+        d_state=cfg.ssm_state, headdim=cfg.ssm_headdim,
+        conv_width=cfg.conv_width, chunk=cfg.ssm_chunk,
+        norm_groups=cfg.ssm_groups,
+        eps=cfg.norm_eps, **_common_tables(cfg))
+    b.emit(ExtOp.RMSNORM, "ssm_norm",
+           L.rmsnorm_meta(cfg.d_model, cfg.param_dtype), tbl=ntbl)
+    b.emit(ExtOp.SSD, "ssm",
+           ssm_mod.mamba2_meta(cfg.d_model, cfg.d_inner, cfg.ssm_heads,
+                               cfg.ssm_groups, cfg.ssm_state, cfg.conv_width,
+                               cfg.param_dtype), tbl=tbl)
+    return b.build()
+
+
+def mem_block_stream(cfg: ArchConfig) -> Stream:
+    """[norm, attn, norm, glu_mlp]: one shared block of a stack with
+    explicit hybrid sites, with no residual inside.  Its input is
+    concat(hidden, embeddings), ``cfg.attn_in`` wide; attention projects
+    it to the heads and back to d_model; the MLP's gate/up projection
+    takes the site's low-rank ``adapter`` beside the block's own weights
+    (``glu_mlp``)."""
+    b = StreamBuilder(cfg)
+    ntbl = b.table(eps=cfg.norm_eps)
+    attn_tbl = b.table(
+        n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
+        rope_theta=cfg.rope_theta, causal=True, rope=True,
+        scale=cfg.sm_scale, **_common_tables(cfg))
+    mlp_tbl = b.table(act="gelu" if cfg.act == "geglu" else "silu",
+                      **_common_tables(cfg))
+    b.emit(ExtOp.RMSNORM, "attn_norm",
+           L.rmsnorm_meta(cfg.attn_in, cfg.param_dtype), tbl=ntbl)
+    b.emit(ExtOp.ATTN, "attn",
+           L.attention_meta(cfg.attn_in, cfg.n_heads, cfg.n_kv_heads,
+                            cfg.hd, cfg.param_dtype, d_out=cfg.d_model),
+           tbl=attn_tbl)
+    b.emit(ExtOp.RMSNORM, "mlp_norm",
+           L.rmsnorm_meta(cfg.d_model, cfg.param_dtype), tbl=ntbl)
+    b.emit(ExtOp.GLU_MLP, "mlp",
+           L.glu_mlp_meta(cfg.d_model, cfg.d_ff, cfg.param_dtype),
+           tbl=mlp_tbl)
+    return b.build()
+
+
 # ---------------------------------------------------------------------------
 # stacked-tree helpers
 # ---------------------------------------------------------------------------
@@ -234,6 +293,11 @@ class LMModel:
         elif cfg.family == "ssm":
             self.block = ssm_block_stream(cfg)
             self.block_kind = "ssm"
+        elif cfg.family == "hybrid" and cfg.hybrid_layer_ids:
+            self.block = site_mamba_stream(cfg)
+            self.shared = mem_block_stream(cfg)
+            self.block_kind = "sites"
+            self.sites = tuple(cfg.hybrid_layer_ids)
         elif cfg.family == "hybrid":
             self.block = ssm_block_stream(cfg)
             self.shared = attn_block_stream(cfg, prefix="shared_")
@@ -261,10 +325,27 @@ class LMModel:
         p["layers"] = _stack_meta(self.block.metas, cfg.n_layers)
         if self.block_kind == "hybrid":
             p["shared_attn"] = self.shared.metas          # ONE copy, reused
+        elif self.block_kind == "sites":
+            p["mem_blocks"] = _stack_meta(self.shared.metas,
+                                          cfg.num_mem_blocks)
+            p["sites"] = _stack_meta(self._site_meta(), len(self.sites))
         elif self.block_kind == "encdec":
             p["enc_layers"] = _stack_meta(self.enc_block.metas,
                                           cfg.encoder_layers)
         return p
+
+    def _site_meta(self) -> Dict[str, Any]:
+        """What each site owns: the linear from the shared block's output
+        into the SSM input, and the low-rank term of the shared MLP's
+        gate/up projection."""
+        cfg = self.cfg
+        m: Dict[str, Any] = {"linear": {"w": ParamMeta(
+            (cfg.d_model, cfg.d_model), cfg.param_dtype, init="scaled",
+            prefs=((1, "model"), (0, "data")))}}
+        if cfg.adapter_rank:
+            m["adapter"] = L.adapter_meta(cfg.d_model, cfg.adapter_rank,
+                                          2 * cfg.d_ff, cfg.param_dtype)
+        return m
 
     def init_params(self, generator: torch.Generator):
         """Seeded random weights, drawn on the generator's device, the
@@ -314,7 +395,8 @@ class LMModel:
                     "memory": ParamMeta((batch, cfg.frontend_len,
                                          cfg.d_model), dt, init="zeros",
                                         prefs=by_batch)}
-        n_sites = cfg.n_layers // cfg.attn_every
+        n_sites = (len(self.sites) if self.block_kind == "sites"
+                   else cfg.n_layers // cfg.attn_every)
         return {"layers": _stack_meta(ssm(), cfg.n_layers),
                 "shared_attn": _stack_meta(kv(), n_sites)}
 
@@ -328,9 +410,10 @@ class LMModel:
 
     def _head(self, params, x):
         norm = L.rmsnorm if self.cfg.norm == "rmsnorm" else L.layernorm
-        xn = norm(params["final_norm"], x)
+        xn = norm(params["final_norm"], x, table={"eps": self.cfg.norm_eps})
         if self.cfg.tie_embeddings:
-            return xn.to(F32) @ params["embed"]["table"].to(F32).t()
+            # f32 logits; on the card one product of the stored type
+            return L.matmul_f32(xn, params["embed"]["table"].t())
         hp = params["head"]
         if isinstance(hp.get("w"), bfp_lib.BFPTensor):   # BFP storage
             hp = {"w": bfp_lib.dequantize(hp["w"]).to(x.dtype)}
@@ -403,6 +486,8 @@ class LMModel:
         cfg = self.cfg
         fn = self.block.fn()
         lc = cache["layers"] if cache is not None else None
+        if self.block_kind == "sites":
+            return self._run_sites(params, x, ctx, cache, remat)
         if self.block_kind != "hybrid":
             for i in range(cfg.n_layers):
                 x = self._layer_remat(remat, fn, params["layers"], i, x, ctx,
@@ -421,6 +506,47 @@ class LMModel:
             if cache is not None:
                 _write_back(cache["shared_attn"], g, sctx["cache"])
         return x
+
+    def _run_sites(self, params, x, ctx, cache, remat: bool):
+        """The stack with explicit hybrid sites: with e = x (the
+        embeddings), layer i runs h <- h + Mamba2_i(RMSNorm_i(h + t)),
+        where t = W_s . Shared_{s mod num_mem_blocks}([h; e]) at site s
+        and 0 elsewhere; each site owns its K/V cache slot."""
+        fn = self.block.fn()
+        shared_fn = self.shared.fn()
+        lc = cache["layers"] if cache is not None else None
+        site_of = {layer: s for s, layer in enumerate(self.sites)}
+        e, h = x, x
+        for i in range(self.cfg.n_layers):
+            inp = h
+            s = site_of.get(i)
+            if s is not None:
+                span = SPANS.begin("lm.shared")
+                try:
+                    t = self._site(shared_fn, params, s, h, e, ctx, cache)
+                finally:
+                    SPANS.end(span, counts={
+                        "block": s % self.cfg.num_mem_blocks, "site": s})
+                inp = h + t
+            with SPANS.span("lm.mamba"):
+                y = self._layer_remat(remat, fn, params["layers"], i, inp,
+                                      ctx, lc)
+            h = h + y
+        return h
+
+    def _site(self, shared_fn, params, s, h, e, ctx, cache):
+        """Site ``s``: its shared block on [h; e], through its linear."""
+        blk = _index(params["mem_blocks"], s % self.cfg.num_mem_blocks)
+        site = _index(params["sites"], s)
+        if "adapter" in site:
+            blk = dict(blk, mlp=dict(blk["mlp"], adapter=site["adapter"]))
+        sctx = dict(ctx)
+        if cache is not None:
+            sctx["cache"] = _index(cache["shared_attn"], s)
+        y, sctx = shared_fn(blk, torch.cat([h, e], dim=-1), sctx)
+        if cache is not None:
+            _write_back(cache["shared_attn"], s, sctx["cache"])
+        return L.dot(y, site["linear"]["w"]).to(h.dtype)
 
     def _encode(self, params, prefix_embed, remat: bool = False):
         """The audio encoder over the stub's frames (B, S, D): positions

@@ -217,7 +217,7 @@ class TestOnCard:
         torch.testing.assert_close(got.float(), want.float(), atol=tol,
                                    rtol=tol)
 
-    @pytest.mark.parametrize("D", [24, 64, 80, 112, 128])
+    @pytest.mark.parametrize("D", [24, 64, 80, 112, 128, 136, 224])
     @pytest.mark.parametrize("L,group", [(257, 4), (1000, 8)])
     def test_flash_attention_bf16_tensor_cores(self, D, L, group):
         """The wgmma kernel at every head dim of the configs, lengths that
@@ -238,7 +238,7 @@ class TestOnCard:
             torch.testing.assert_close(got.float(), want.float(), atol=1.6e-2,
                                        rtol=1.6e-2)
 
-    @pytest.mark.parametrize("D", [64, 80, 128])
+    @pytest.mark.parametrize("D", [64, 80, 128, 224])
     def test_flash_attention_bf16_sharp_softmax(self, D):
         """Scores and values at the Zamba2 prefill's scale (|v| up to ~50,
         a nearly one-hot softmax): a weight of P rounded to bf16 alone
@@ -260,10 +260,28 @@ class TestOnCard:
 
     def test_flash_attention_bf16_geometry_and_refusals(self):
         dev = _cuda()
-        for D in (20, 136):      # not a multiple of 8; above 128
+        for D in (20, 264):      # not a multiple of 8; above 256
             x = torch.zeros((1, 1, 64, D), device=dev, dtype=torch.bfloat16)
             with pytest.raises(ValueError):
                 flash_attention(x, x, x)
+
+    def test_flash_attention_bf16_zamba2_7b_prefill(self):
+        """K4 in bf16 at Zamba2-7B's longest prefill of the benchmark:
+        batch 2 of its 8, 32 heads of 224, 3840 positions, causal, at the
+        shared block's scale (224 / 2) ** -0.5, against the plain path."""
+        dev = _cuda()
+        from repro_torch import kernels
+
+        B, H, L, D = 2, 32, 3840, 224
+        q, k, v = (torch.from_numpy(_normal(s, (B, H, L, D))).to(
+            dev, torch.bfloat16) for s in (1, 2, 3))
+        geo = dict(sm_scale=(D / 2) ** -0.5, causal=True, kv_len=L)
+        kernels.reset_launch_counts()
+        got = flash_attention_padded(q, k, v, **geo)
+        assert kernels.launch_counts()["flash_attention_padded"] == 1
+        want = flash_attention_plain(q, k, v, **geo)
+        torch.testing.assert_close(got.float(), want.float(), atol=1.6e-2,
+                                   rtol=1.6e-2)
 
     @pytest.mark.parametrize("dims", [(3, 2, 3, 32, 16, 24),
                                       (2, 1, 80, 128, 64, 64),

@@ -37,6 +37,8 @@ from repro_torch.launch import dryrun
 from repro_torch.models.lm import LMModel, moe
 from repro_torch.models.lm import params as params_lib
 
+from _archs import PORT_ONLY
+
 torch.set_num_threads(2)
 
 # the four shapes at their names (the skip rule reads the name), cut small
@@ -61,7 +63,7 @@ def _ref_mesh(shape):
 # counts
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", configs.ARCH_IDS)
+@pytest.mark.parametrize("arch", jconfigs.ARCH_IDS)
 def test_counts_equal_reference(arch):
     """count_params and param_bytes of the full config's parameters and
     caches, over ParamMeta trees and over meta-tensor trees (abstract,
@@ -93,14 +95,17 @@ def test_counts_equal_reference(arch):
 def test_smoke_cells_ok_or_reference_skip(arch, mesh, tmp_path):
     """Every smoke arch at the four shapes: ``ok`` on the meta device
     with nothing allocated elsewhere, or ``skipped`` for the reference's
-    reason (the moe archs run: the routing counts by scatter-add)."""
-    jcfg = jconfigs.get_smoke_config(arch)
+    reason (the moe archs run: the routing counts by scatter-add); an
+    arch the reference lacks (``PORT_ONLY``) skips for the port's own
+    reason."""
+    cf = configs if arch in PORT_ONLY else jconfigs
+    jcfg = cf.get_smoke_config(arch)
     for name, shape in SMALL_SHAPES.items():
         rec = dryrun.run_cell(arch, shape, mesh=mesh, smoke=True,
                               report_dir=str(tmp_path), verbose=False)
-        jshape = jconfigs.base.ShapeConfig(name, shape.seq_len,
-                                           shape.global_batch, shape.kind)
-        ok, reason = jconfigs.shape_applicable(jcfg, jshape)
+        jshape = cf.base.ShapeConfig(name, shape.seq_len,
+                                     shape.global_batch, shape.kind)
+        ok, reason = cf.shape_applicable(jcfg, jshape)
         if not ok:
             assert rec["status"] == "skipped" and rec["reason"] == reason
             continue

@@ -38,6 +38,8 @@ from repro_torch.models.lm import layers as L
 from repro_torch.models.lm import params as params_lib
 from repro_torch.models.lm import ssm
 
+from _archs import PORT_ONLY
+
 torch.set_num_threads(2)
 
 SERVE_ARCHS = ["tinyllama-1.1b", "mamba2-370m", "zamba2-2.7b",
@@ -90,13 +92,23 @@ def _close(got, want, tol):
 # configs and parameter trees
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", configs.ARCH_IDS)
+@pytest.mark.parametrize("arch", jconfigs.ARCH_IDS)
 def test_configs_equal_reference(arch):
-    assert configs.ARCH_IDS == jconfigs.ARCH_IDS
+    """The reference's archs are the port's less ``PORT_ONLY``; each
+    equals the reference's on the reference's fields, and the port's own
+    fields (explicit hybrid sites and the rest) stay at their defaults."""
+    assert jconfigs.ARCH_IDS == [a for a in configs.ARCH_IDS
+                                 if a not in PORT_ONLY]
+    ref_fields = {f.name for f in dataclasses.fields(jconfigs.ArchConfig)}
+    defaults = {f.name: f.default for f in dataclasses.fields(
+        configs.ArchConfig) if f.name not in ref_fields}
+    assert defaults
     for mine, ref in ((configs.get_config(arch), jconfigs.get_config(arch)),
                       (configs.get_smoke_config(arch),
                        jconfigs.get_smoke_config(arch))):
-        assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
+        got = dataclasses.asdict(mine)
+        assert {k: got.pop(k) for k in defaults} == defaults
+        assert got == dataclasses.asdict(ref)
         assert (mine.hd, mine.d_inner, mine.ssm_heads) == \
             (ref.hd, ref.d_inner, ref.ssm_heads)
     cfg = configs.get_config(arch)
@@ -110,7 +122,7 @@ def test_configs_equal_reference(arch):
 
 
 @pytest.mark.parametrize("shape", list(configs.SHAPES))
-@pytest.mark.parametrize("arch", configs.ARCH_IDS)
+@pytest.mark.parametrize("arch", jconfigs.ARCH_IDS)
 def test_input_specs_equal_reference(arch, shape):
     mine = configs.input_specs(configs.get_config(arch),
                                configs.SHAPES[shape], batch=3)

@@ -290,7 +290,8 @@ class TestWgmmaGeometry:
             if cfg.is_attention_free:
                 continue
             halves, smem = wgmma_geometry(cfg.hd)
-            assert halves == (1 if cfg.hd <= 64 else 2)
+            assert halves == (1 if cfg.hd <= 64 else 2 if cfg.hd <= 128
+                              else 4)
             assert smem < 227 * 1024
 
     def test_head_dim_128_shared_memory(self):
@@ -298,7 +299,14 @@ class TestWgmmaGeometry:
         assert halves == 2 and smem == 5 * 2 * 64 * 128 + 1024 + 40
         assert smem < 227 * 1024
 
-    @pytest.mark.parametrize("head_dim", [0, 4, 20, 100, 136])
+    def test_head_dim_224_shared_memory(self):
+        """Zamba2-7B's heads: four 64-column boxes, Q and a 2-stage K/V
+        ring in 164,904 bytes, under the 227 KB a block may use."""
+        halves, smem = wgmma_geometry(224)
+        assert halves == 4 and smem == 5 * 4 * 64 * 128 + 1024 + 40
+        assert smem == 164_904 < 227 * 1024
+
+    @pytest.mark.parametrize("head_dim", [0, 4, 20, 100, 264])
     def test_other_head_dims_raise(self, head_dim):
         with pytest.raises(ValueError, match="multiple of 8"):
             wgmma_geometry(head_dim)

@@ -284,7 +284,7 @@ def _ref_specs(meta, mesh):
 
 
 @pytest.mark.parametrize("mesh_name", list(MESHES))
-@pytest.mark.parametrize("arch", configs.ARCH_IDS)
+@pytest.mark.parametrize("arch", jconfigs.ARCH_IDS)
 def test_specs_equal_reference(arch, mesh_name):
     """Every leaf of the full config's parameters and caches (prefill and
     decode shapes) resolves to the reference's spec, and the BFP weight
@@ -412,7 +412,7 @@ def _ref_train_step(jm, ref, batch, jkw):
     return m, p2, o2
 
 
-@pytest.mark.parametrize("arch", configs.ARCH_IDS)
+@pytest.mark.parametrize("arch", jconfigs.ARCH_IDS)
 def test_train_step_matches_reference(arch):
     """Loss and gradients against jax.value_and_grad, then one AdamW step
     through build_train_step on a one-slot mesh against the reference's
